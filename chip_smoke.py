@@ -18,9 +18,24 @@ Phases, each printing its wall seconds:
               run_closed_loop on the card in float32, held to finite states,
               every solve_ok, base z in (1.0, 1.1), last cost below the
               first, and K1/K2 launched; then timed once more
-Then one `kernels` JSON line and, last, the `ok` JSON line. Any failed
-check exits non-zero before the result lines. Imports only the port, torch,
-numpy and the standard library.
+  5. riccati  K4 against its plain version: on tests/test_ops.py's random
+              inputs at (N, nx, nu) = (10, 51, 19) and (4, 13, 5), and where
+              the PD bump fires, at the JAX package's Riccati bar (rtol 2e-3,
+              atol 2e-4, tests/test_ops.py:36-37); on the long-horizon path's
+              own inputs (N=100) against float64, K and kff each no further
+              than float32 allows; then timed at N=25 and N=100 beside the
+              plain version and the port's torch.linalg loop
+  6. long horizon  scenarios.long_horizon (N=100, dt 0.01, backward "pallas")
+              in two variants, (a) tuned, 5 MPC steps and (b) tuned, one
+              iteration, a solve every 2nd of 6 control steps; each held to
+              finite states, every solve_ok, base z in (1.0, 1.1), K4 launched
+              once per backward pass and K1/K2 launched, (b) also to its last
+              cost below its first; then timed once more, and one solver
+              iteration at N=100 broken down
+Each path is driven with every launch count set to 0 just before it and read
+just after. Then one `kernels` JSON line and, last, the `ok` JSON line. Any
+failed check exits non-zero before the result lines. Imports only the port,
+torch, numpy and the standard library.
 """
 import faulthandler
 import json
@@ -35,6 +50,11 @@ N_STEPS = 15
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 ANCHORS = "TPU-era quality anchors (information only): final cost 0.4000-0.4001, base_z 1.042690"
+LH_ANCHORS = ("TPU-era long-horizon anchors (information only): final cost 2.3070-2.3072, "
+              "base_z 1.0430")
+RICCATI_RTOL, RICCATI_ATOL = 2e-3, 2e-4  # tests/test_ops.py:36-37
+RICCATI_REG = 2.0 ** -20  # ~1e-6, exact in float32 (the bump case needs an exact zero pivot)
+RICCATI_T_BAD = 6  # the step where riccati_problem's bump cases put their pivot
 
 
 def fail(msg: str) -> None:
@@ -81,9 +101,74 @@ def chain_flops(model, xs, feedback):
     return int(round(states.shape[0] * fixed + n_contact))
 
 
+def riccati_flops(N, nx, nu, n_bumps):
+    """Floating-point operations that the Riccati pass needs, per step: Qx,
+    Qu; AᵀVxx and BᵀVxx; one triangle of the symmetric Qxx and Quu + λI and
+    all of Qxu; the Cholesky (again, with the bump, at the n_bumps steps where
+    it fires); the forward and back substitution of the nx+1 right-hand
+    sides; W = Quu·[K | k] + [Qxuᵀ | Qu]; Vx = Qx + KᵀW_k + Qxu k; and one
+    triangle of the symmetric Vxx = Qxx + KᵀW_K + Qxu K. The
+    symmetrization is not counted: one triangle needs none."""
+    tri = lambda n: n * (n + 1) // 2
+    chol = sum((nu - k) + 1 + (nu - k - 1) * (nu - k) for k in range(nu))
+    per_t = (2 * nx * nx + 2 * nx * nu  # Qx, Qu
+             + 2 * nx ** 3 + 2 * nu * nx * nx  # AᵀVxx, BᵀVxx
+             + 2 * nx * tri(nx) + 2 * nx * nx * nu + 2 * nx * tri(nu) + nu  # Qxx, Qxu, Quu + λI
+             + chol
+             + (nx + 1) * 2 * nu * nu  # forward and back substitution
+             + 2 * nu * nu * (nx + 1)  # W
+             + 4 * nu * nx + 4 * nu * tri(nx))  # Vx, Vxx
+    return N * per_t + n_bumps * (nu + chol)
+
+
+def riccati_bytes(N, nx, nu):
+    """Inputs read once (A, B, lx, lu, lxx, luu, λ), outputs written once."""
+    return 4 * (N * nx * nx + N * nx * nu + (N + 1) * nx + N * nu + (N + 1) * nx * nx
+                + N * nu * nu + 1 + N * nu * nx + N * nu)
+
+
+def riccati_problem(N, nx, nu, case="plain"):
+    """tests/test_ops.py:14-26's random Riccati problem (numpy, seed 42) as
+    float64 arrays A, B, lx, lu, lxx, luu. "rescued": at t=RICCATI_T_BAD,
+    B_t = 0 and luu_t has -RICCATI_REG on one diagonal entry, so Quu + λI
+    (λ = RICCATI_REG) has an exact zero pivot, the first factor is NaN and
+    the bump makes it positive definite (k_t there is -lu/pd_bump);
+    "indefinite": luu_t = -I, which the bump cannot cure, so every
+    t <= RICCATI_T_BAD comes out NaN."""
+    import numpy as np
+
+    rng = np.random.default_rng(42)
+    A = np.eye(nx) + 0.02 * rng.normal(size=(N, nx, nx))
+    B = 0.02 * rng.normal(size=(N, nx, nu))
+    lx, lu = rng.normal(size=(N + 1, nx)), rng.normal(size=(N, nu))
+    lxx = np.einsum("ti,ij->tij", rng.uniform(1.0, 5.0, size=(N + 1, nx)), np.eye(nx))
+    luu = np.einsum("ti,ij->tij", rng.uniform(0.1, 1.0, size=(N, nu)), np.eye(nu))
+    if case == "rescued":
+        B[RICCATI_T_BAD] = 0.0
+        luu[RICCATI_T_BAD, 3, 3] = -RICCATI_REG
+    elif case == "indefinite":
+        luu[RICCATI_T_BAD] = -np.eye(nu)
+    return [A, B, lx, lu, lxx, luu]
+
+
 def bound(n_bytes, n_flops):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def breakdown(parts, tag):
+    """Host-clock ms per call of each part, 5 calls after one warm-up."""
+    import torch
+
+    for label, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        print(f"  breakdown ({tag}): {label}: {(time.perf_counter() - t0) * 1e3 / 5:.3f} ms "
+              f"(host clock)")
 
 
 def event_ms(fn, reps):
@@ -118,13 +203,27 @@ def main() -> int:
     phase("device", t0)
 
     sys.path.insert(0, ROOT)
+    from mpc_ilqr_tpu_torch import scenarios
+    from mpc_ilqr_tpu_torch.costs.quadratics import (CostQuadratics, quadraticize_gn,
+                                                     trajectory_costs)
+    from mpc_ilqr_tpu_torch.costs.references import extract_window
     from mpc_ilqr_tpu_torch.dynamics import engine
+    from mpc_ilqr_tpu_torch.ilqr import solver
     from mpc_ilqr_tpu_torch.io.config import load_config
     from mpc_ilqr_tpu_torch.models.robot import load_h1, standing_state
     from mpc_ilqr_tpu_torch.mpc import controller, runner
     from mpc_ilqr_tpu_torch.ops import _build
+    from mpc_ilqr_tpu_torch.ops import riccati
     from mpc_ilqr_tpu_torch.ops import rollout_kernel as rk
     from mpc_ilqr_tpu_torch.ops.step_plan import build_step_plan
+
+    def reset_counts():
+        rk.reset_launch_counts()
+        riccati.reset_launch_counts()
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {**rk.LAUNCHES, **riccati.LAUNCHES}
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -259,11 +358,10 @@ def main() -> int:
     # ---- 4. the closed loop ------------------------------------------------
     t0 = time.perf_counter()
     x_init = standing_state(model)
-    rk.reset_launch_counts()
+    reset_counts()
     _, xT, hist = controller.run_closed_loop(model, cp, cfg, refs, controller.init_state(model, cfg),
                                              x_init, N_STEPS, plan=plan)
-    torch.cuda.synchronize()
-    launches = dict(rk.LAUNCHES)
+    launches = read_counts()
     loop_s = time.perf_counter() - t0
     costs = hist["cost"].cpu().numpy()
     xs = hist["x"].cpu().numpy()
@@ -286,6 +384,7 @@ def main() -> int:
             fail(f"{tpu_id[name]} was not launched on the main path")
     for name in report:
         report[name]["launches"] = launches[name]
+        report[name]["launches_by_path"] = {"standing": launches[name]}
 
     t1 = time.perf_counter()
     controller.run_closed_loop(model, cp, cfg, refs, controller.init_state(model, cfg), x_init,
@@ -295,10 +394,6 @@ def main() -> int:
     print(f"closed loop: {step_ms:.2f} ms per MPC step (host clock, warm, {N_STEPS} steps)")
 
     # Where one solver iteration's time goes, at the last step's window.
-    from mpc_ilqr_tpu_torch.costs.quadratics import quadraticize_gn, trajectory_costs
-    from mpc_ilqr_tpu_torch.costs.references import extract_window
-    from mpc_ilqr_tpu_torch.ilqr import solver
-
     win = extract_window(refs, N_STEPS - 1, N)
     x_last, ub = hist["x"][-1], hist["u"][-1][None].repeat(N, 1).contiguous()
     xb = rk.rollout_kernel(model, plan, x_last, ub)
@@ -318,15 +413,184 @@ def main() -> int:
         "K3 linesearch_batched (A=7)": lambda: rk.linesearch_rollout_kernel_batched(
             model, plan, x_last, xb, ub, Kf, kf, al[1:]),
     }
-    for label, fn in parts.items():
-        fn()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-        print(f"  breakdown: {label}: {(time.perf_counter() - t2) * 1e3 / 5:.3f} ms (host clock)")
+    breakdown(parts, f"N={N}")
     phase("loop", t0)
+
+    # ---- 5. K4 against its plain version -----------------------------------
+    t0 = time.perf_counter()
+    print(f"K4 shared memory per block (H1, nx={nx}, nu={nu}): "
+          f"{lib.mpc_riccati_smem_bytes(nx, nu)} bytes")
+
+    def riccati_err(label, got, want):
+        """max |kernel - plain| where the plain version is finite, after
+        checking the kernel is finite exactly where it is and within
+        atol + rtol |plain| everywhere else."""
+        err = 0.0
+        for g, w in zip(got, want):
+            if g.shape != w.shape:
+                fail(f"{label}: K4 output shape {tuple(g.shape)} != plain {tuple(w.shape)}")
+            if not torch.equal(torch.isfinite(g), torch.isfinite(w)):
+                fail(f"{label}: K4 is not finite exactly where its plain version is not")
+            fin = torch.isfinite(w)
+            d, ref = (g - w).abs()[fin].double(), w.abs()[fin].double()
+            if bool((d > RICCATI_ATOL + RICCATI_RTOL * ref).any()):
+                fail(f"{label}: K4 disagrees with its plain version beyond rtol {RICCATI_RTOL}, "
+                     f"atol {RICCATI_ATOL} (max {float(d.max()):.3e})")
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+        return err
+
+    k4_err = 0.0
+    for N_, nx_, nu_, case, reg_ in ((10, 51, 19, "plain", 1e-6), (4, 13, 5, "plain", 1e-5),
+                                     (10, 51, 19, "rescued", RICCATI_REG),
+                                     (10, 51, 19, "indefinite", RICCATI_REG)):
+        args = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+                for a in riccati_problem(N_, nx_, nu_, case)]
+        got = riccati.backward_pass_kernel(*args, reg_, cfg.pd_bump)
+        want = riccati.backward_pass_plain(*args, reg_, cfg.pd_bump)
+        e = riccati_err(f"K4 ({N_}, {nx_}, {nu_}) {case}", got, want)
+        if case == "rescued" and not bool(torch.isfinite(got[1][RICCATI_T_BAD]).all()):
+            fail("K4: the PD bump did not rescue the zero pivot")
+        k4_err = max(k4_err, e)
+        print(f"K4 riccati_backward ({N_}, {nx_}, {nu_}) {case}: max|kernel - plain| = {e:.3e} "
+              f"(rtol {RICCATI_RTOL}, atol {RICCATI_ATOL}; non-finite at "
+              f"{int((~torch.isfinite(got[1])).any(1).sum())} of {N_} steps, as plain)")
+
+    # The long-horizon path's own inputs: A, B and the GN quadratics at N=100 along the
+    # cold-start rollout from standing. The value function there is conditioned like the
+    # flagship's contact chain, so two float32 recursions part by more than 2e-4; the
+    # kernel is held to float64 no further than float32 allows.
+    lh, _ = scenarios.long_horizon(tuned=True)
+    lm, lcfg = lh.model, lh.cfg
+    lx0 = standing_state(lm)
+    lub = engine.gravity_comp(lm, lx0)[None].repeat(lcfg.N, 1).contiguous()
+    lxb = solver.rollout(lm, lcfg, lx0, lub, plan=lh.plan)
+    lwin = extract_window(lh.refs, 0, lcfg.N)
+    A_, B_ = solver.linearize(lm, lcfg, lxb, lub)
+    lq = quadraticize_gn(lm, lh.cp, lwin, lxb, lub)
+    lh_args = [t.contiguous() for t in (A_, B_, *lq)]
+    reg_t, pd = torch.tensor(lcfg.reg_init, device=dev), lcfg.pd_bump
+    got = riccati.backward_pass_kernel(*lh_args, reg_t, pd)
+    p32 = riccati.backward_pass_plain(*lh_args, reg_t, pd)
+    a64 = [t.double() for t in lh_args]
+    bump_steps = []  # the work this data needs: the steps where the bump fires
+    p64 = riccati.backward_pass_plain(*a64, lcfg.reg_init, pd, bumps=bump_steps)
+    # K (|K| up to ~1e3) and kff have float32 floors far apart, so each is held to its own bar.
+    lh_err = {}
+    for j, out in enumerate(("K", "kff")):
+        e_k, e_p, e_kp = max_err(got[j], p64[j]), max_err(p32[j], p64[j]), max_err(got[j], p32[j])
+        bar = RICCATI_ATOL + 2.0 * e_p
+        lh_err[out] = (e_k, e_p)
+        print(f"K4 on the long-horizon inputs (N={lcfg.N}), {out}: |kernel-plain64| {e_k:.3e}, "
+              f"|plain32-plain64| {e_p:.3e}, |kernel-plain32| {e_kp:.3e} (bar {bar:.3e}); "
+              f"max |{out}| {float(p64[j].abs().max()):.3e}")
+        if not e_k <= bar:
+            fail(f"K4 {out} further from float64 than float32 allows ({e_k:.3e} > {bar:.3e})")
+    print(f"  PD bumps on these inputs: at steps {sorted(bump_steps)}")
+
+    k4 = {}
+    for Nt in (25, lcfg.N):
+        s0 = lcfg.N - Nt
+        a = [t[s0:].contiguous() for t in lh_args]
+        quad_t = CostQuadratics(*a[2:])
+        ms = event_ms(lambda: riccati.backward_pass_kernel(*a, reg_t, pd), 20)
+        plain_ms = event_ms(lambda: riccati.backward_pass_plain(*a, reg_t, pd), 2)
+        loop_ms = event_ms(lambda: solver.backward_pass(a[0], a[1], quad_t, reg_t, pd), 3)
+        n_bumps = sum(t >= s0 for t in bump_steps)
+        n_bytes, flops = riccati_bytes(Nt, nx, nu), riccati_flops(Nt, nx, nu, n_bumps)
+        bound_ms, bound_by = bound(n_bytes, flops)
+        k4[Nt] = dict(ms=ms, plain_ms=plain_ms, loop_ms=loop_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, bytes=n_bytes, flops=flops)
+        print(f"  N={Nt}: K4 {ms:.4f} ms/launch (plain {plain_ms:.3f} ms; port loop "
+              f"solver.backward_pass {loop_ms:.3f} ms; bound {bound_ms:.6f} ms by {bound_by}: "
+              f"{n_bytes} bytes, {flops} flop)")
+    report["riccati"] = dict(
+        name="K4 riccati_backward", route="cuda", source="mpc_ilqr_tpu_torch/csrc/riccati.cu",
+        replaces="mpc_ilqr_tpu/ops/riccati.py:143", launches=0, max_abs_err=k4_err,
+        ms=k4[lcfg.N]["ms"], plain_ms=k4[lcfg.N]["plain_ms"], bound_ms=k4[lcfg.N]["bound_ms"],
+        bound_by=k4[lcfg.N]["bound_by"], library_ms=None, bytes=k4[lcfg.N]["bytes"],
+        flops=k4[lcfg.N]["flops"], port_loop_ms=k4[lcfg.N]["loop_ms"], ms_n25=k4[25]["ms"],
+        plain_ms_n25=k4[25]["plain_ms"], port_loop_ms_n25=k4[25]["loop_ms"],
+        bound_ms_n25=k4[25]["bound_ms"], main_path_K_err_vs_f64=lh_err["K"][0],
+        main_path_K_plain32_err_vs_f64=lh_err["K"][1], main_path_kff_err_vs_f64=lh_err["kff"][0],
+        main_path_kff_plain32_err_vs_f64=lh_err["kff"][1],
+        launches_by_path={"standing": launches["riccati"]})
+    phase("riccati", t0)
+
+    # ---- 6. the long-horizon path --------------------------------------------
+    t0 = time.perf_counter()
+
+    def drive(prob_, solve_every, n_steps):
+        x0 = standing_state(prob_.model)
+        state0 = controller.init_state(prob_.model, prob_.cfg)
+        if solve_every == 1:
+            return controller.run_closed_loop(prob_.model, prob_.cp, prob_.cfg, prob_.refs,
+                                              state0, x0, n_steps, plan=prob_.plan)
+        return scenarios.tvlqr_amortized_loop(prob_, solve_every, state0, x0, n_steps)
+
+    variants = {"long_horizon_tuned": dict(tuned=True),
+                "long_horizon_tuned_it1_tvlqr2": dict(tuned=True, iters=1, solve_every=2)}
+    for label, kw in variants.items():
+        prob_, n_steps = scenarios.long_horizon(**kw)
+        k = kw.get("solve_every", 1)
+        t1 = time.perf_counter()
+        reset_counts()
+        _, xT_, h = drive(prob_, k, n_steps)
+        counts = read_counts()
+        first_s = time.perf_counter() - t1
+        xs_ = h["x"].cpu().numpy()
+        costs_ = h["cost"].cpu().numpy()
+        for i in range(len(costs_)):
+            print(f"{label} solve {i}: cost {costs_[i]:.6f}  iterations {h['iterations'][i]}  "
+                  f"solve_ok {h['solve_ok'][i]}  base_z {xs_[i * k, 2]:.6f}")
+        z_ = float(xT_[2])
+        print(f"{label}: {n_steps} control steps, N={prob_.cfg.N}, final base_z {z_:.6f}, final "
+              f"cost {costs_[-1]:.6f}; launches {counts}; first run {first_s:.2f} s")
+        if not (np.isfinite(xs_).all() and bool(torch.isfinite(xT_).all())):
+            fail(f"{label}: non-finite state")
+        if not all(h["solve_ok"]):
+            fail(f"{label}: solve_ok false at solves "
+                 f"{[i for i, ok in enumerate(h['solve_ok']) if not ok]}")
+        if not (1.0 < xs_[:, 2].min() and xs_[:, 2].max() < 1.1 and 1.0 < z_ < 1.1):
+            fail(f"{label}: base_z left (1.0, 1.1): min {xs_[:, 2].min()}, max "
+                 f"{xs_[:, 2].max()}, final {z_}")
+        if k > 1 and not costs_[-1] < costs_[0]:
+            fail(f"{label}: last cost {costs_[-1]} is not below the first {costs_[0]}")
+        n_it = sum(h["iterations"])
+        attempts = 1 if prob_.cfg.inner_attempts == 1 else 2
+        print(f"  backward passes: K4 launches {counts['riccati']}, iterations {n_it}, "
+              f"attempts per iteration <= {attempts}")
+        if not (1 <= n_it <= counts["riccati"] <= attempts * n_it):
+            fail(f"{label}: K4 launches {counts['riccati']} do not match {n_it} iterations")
+        for name in ("rollout", "linesearch"):
+            if counts[name] < 1:
+                fail(f"{label}: {tpu_id[name]} was not launched")
+        for name in report:
+            report[name]["launches_by_path"][label] = counts[name]
+        report["riccati"]["launches"] += counts["riccati"]
+        t1 = time.perf_counter()
+        drive(prob_, k, n_steps)
+        torch.cuda.synchronize()
+        print(f"{label}: {(time.perf_counter() - t1) * 1e3 / n_steps:.2f} ms per control step "
+              f"(host clock, warm, {n_steps} steps)")
+    print(LH_ANCHORS)
+
+    # Where one solver iteration's time goes at N=100, on phase 5's inputs.
+    Kf, kf = riccati.backward_pass_kernel(*lh_args, reg_t, pd)
+    al = torch.tensor(lcfg.alphas, device=dev)
+    breakdown({
+        "linearize (step_and_jac, vmapped)": lambda: solver.linearize(lm, lcfg, lxb, lub),
+        "quadraticize_gn": lambda: quadraticize_gn(lm, lh.cp, lwin, lxb, lub),
+        "backward_pass (port loop)": lambda: solver.backward_pass(A_, B_, lq, reg_t, pd),
+        "K4 riccati_backward": lambda: riccati.backward_pass_kernel(*lh_args, reg_t, pd),
+        "trajectory_costs (1 candidate)": lambda: trajectory_costs(lm, lh.cp, lwin, lxb[None],
+                                                                   lub[None]),
+        "K1 rollout_kernel": lambda: rk.rollout_kernel(lm, lh.plan, lx0, lub),
+        "K2 linesearch (A=1)": lambda: rk.linesearch_rollout_kernel(
+            lm, lh.plan, lx0, lxb, lub, Kf, kf, al[:1]),
+        "K3 linesearch_batched (A=7)": lambda: rk.linesearch_rollout_kernel_batched(
+            lm, lh.plan, lx0, lxb, lub, Kf, kf, al[1:]),
+    }, f"N={lcfg.N}")
+    phase("long horizon", t0)
 
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

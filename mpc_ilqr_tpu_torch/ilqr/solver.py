@@ -3,7 +3,8 @@
   rollout        K1 (`rollout_backend="pallas"`) or its plain loop ("xla")
   linearize      engine.step_and_jac vmapped over the horizon
   quadraticize   Gauss-Newton cost quadratics (quad_mode "gn")
-  backward       Riccati recursion with λ-regularization and one PD bump
+  backward       Riccati recursion with λ-regularization and one PD bump:
+                 K4 in one launch (`backward="pallas"`) or the loop below
   line search    cascade: α=1 alone (K2), then the other alphas in one
                  launch (K3) only on reject; or first_accept / argmin
   outer loop     the reference's adaptive regularization, retry, give-up
@@ -11,7 +12,7 @@
 
 The backend names are the reference config's: "pallas" / "pallas_batched"
 select the hand-written CUDA kernels (their plain versions on CPU tensors),
-"xla" selects the plain loops.
+"xla" and "scan" select the plain loops.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from mpc_ilqr_tpu_torch.costs.quadratics import (
 from mpc_ilqr_tpu_torch.costs.references import ReferenceWindow
 from mpc_ilqr_tpu_torch.dynamics import engine
 from mpc_ilqr_tpu_torch.models.robot import RobotModel
+from mpc_ilqr_tpu_torch.ops import riccati
 from mpc_ilqr_tpu_torch.ops import rollout_kernel as rk
 
 
@@ -55,19 +57,29 @@ class ILQRConfig:
     cost_mode: str = "reference"  # the line-search cost of ilqr.cpp:363-518
     n_substeps: int = 1  # physics substeps per horizon step (dt/physics_dt)
     line_search: str = "first_accept"  # "first_accept" | "argmin" | "cascade"
-    backward: str = "scan"  # the Riccati loop below
+    backward: str = "scan"  # "scan": the Riccati loop below; "pallas": K4
     linearization: str = "structured_frozen_mass"  # or "structured"
     rollout_backend: str = "xla"  # "pallas": K1
     ls_backend: str = "xla"  # "pallas": K2, "pallas_batched": K3
     cascade_p1_backend: str = "pallas"  # phase-1 (α=1) chain: K2 or "xla"
     inner_attempts: int = 2  # 2: retry a failed line search once with λ×10; 1: no retry
     quad_mode: str = "gn"  # Gauss-Newton task Hessians
+    # "while" or "scan", kept for parity with the reference's config. Its
+    # "scan" runs max_iterations trips and freezes the carry once done; a
+    # frozen carry gives the solution and the iteration count of "while", so
+    # both modes exit early here. The effective knob is linearize_every,
+    # which only "scan" honours.
+    outer_loop: str = "while"
+    # With outer_loop="scan": linearize on every k-th trip only; the trips in
+    # between reuse the previous trip's A, B and quadraticize anew.
+    linearize_every: int = 1
 
 
 _SUPPORTED = {
     "cost_mode": ("reference",),
     "line_search": ("first_accept", "argmin", "cascade"),
-    "backward": ("scan",),
+    "backward": ("scan", "pallas"),
+    "outer_loop": ("while", "scan"),
     "linearization": ("structured", "structured_frozen_mass"),
     "rollout_backend": ("xla", "pallas"),
     "ls_backend": ("xla", "pallas", "pallas_batched"),
@@ -82,6 +94,8 @@ def check_config(cfg: ILQRConfig) -> None:
             raise NotImplementedError(
                 f"ILQRConfig.{field}={getattr(cfg, field)!r} is not ported; "
                 f"this package has {allowed}")
+    if cfg.linearize_every < 1:
+        raise ValueError(f"ILQRConfig.linearize_every must be >= 1, got {cfg.linearize_every}")
 
 
 class ILQRSolution(NamedTuple):
@@ -129,7 +143,7 @@ def backward_pass(A, B, quad: CostQuadratics, reg, pd_bump: float):
         # PD check with bump (ilqr.cpp:278-281); a failed factor is NaN.
         L, info = torch.linalg.cholesky_ex(Quu)
         bad = (info != 0) | ~torch.isfinite(L).all()
-        Quu = Quu + torch.where(bad, pd_bump, 0.0) * I_u
+        Quu = Quu + bad.to(Quu.dtype) * pd_bump * I_u  # pd_bump in Quu's dtype
         L, info = torch.linalg.cholesky_ex(Quu)
         L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
         K_t = -torch.cholesky_solve(Qxu.T, L)
@@ -193,7 +207,9 @@ def solve(model: RobotModel, cp: CostParams, cfg: ILQRConfig, x0, win: Reference
     Each iteration linearizes and quadraticizes at the nominal trajectory,
     then makes up to `inner_attempts` (backward pass + line search) attempts,
     multiplying λ by 10 after a failed one. Convergence: |Δcost| < tol;
-    divergence: cost > 1e6; give-up: no accepted step at iteration > 1."""
+    divergence: cost > 1e6; give-up: no accepted step at iteration > 1.
+    With outer_loop="scan" and linearize_every=k > 1, only every k-th
+    iteration linearizes (see ILQRConfig)."""
     check_config(cfg)
     N, nu, nx = cfg.N, model.nu, model.nx
     dt, dev = x0.dtype, x0.device
@@ -213,14 +229,20 @@ def solve(model: RobotModel, cp: CostParams, cfg: ILQRConfig, x0, win: Reference
     it, done = 0, False
     ever_accepted = stationary = diverged = False
 
+    relinearize = 1 if cfg.outer_loop == "while" else cfg.linearize_every
     while not done and it < cfg.max_iterations:
-        A, B = linearize(model, cfg, xbar, ubar)
+        if it % relinearize == 0:
+            A, B = linearize(model, cfg, xbar, ubar)
         quad = quadraticize_gn(model, cp, win, xbar, ubar)
         baseline = trajectory_cost(model, cp, win, xbar, ubar)
 
         reg_a, ok, best = reg, False, None
         for _ in range(1 if cfg.inner_attempts == 1 else 2):  # the reference retries once
-            K, kff = backward_pass(A, B, quad, reg_a, cfg.pd_bump)
+            if cfg.backward == "pallas":
+                K, kff = riccati.backward_pass_kernel(
+                    *(t.contiguous() for t in (A, B, *quad)), reg_a, cfg.pd_bump)
+            else:
+                K, kff = backward_pass(A, B, quad, reg_a, cfg.pd_bump)
             ok, xs, us, c_new, best = line_search(
                 model, cp, cfg, win, x0, xbar, ubar, K, kff, baseline, plan=plan)
             if ok:

@@ -71,11 +71,14 @@ def setup(app: AppConfig, device=None) -> Problem:
 def build_plan_gated(model: RobotModel, cfg: ILQRConfig, dtype):
     """Kernel gate: return (StepPlan | None, cfg).
 
-    On CUDA the kernels take float32 models of free/hinge/fixed joints; a
-    config that asks for them with any other model raises. On the CPU the
-    kernels' plain versions run; a model the kernels could not take drops
-    to the plain loops with a notice, as the reference does.
+    On CUDA the kernels take float32 models, and the rollout kernels models
+    of free/hinge/fixed joints; a config that asks for them with any other
+    model raises. On the CPU the kernels' plain versions run; a model the
+    rollout kernels could not take drops to the plain loops with a notice,
+    as the reference does.
     """
+    if cfg.backward == "pallas" and model.device.type == "cuda" and dtype != torch.float32:
+        raise ValueError("the CUDA Riccati kernel (backward='pallas') is float32-only")
     want = (cfg.rollout_backend == "pallas" or cfg.ls_backend in ("pallas", "pallas_batched")
             or (cfg.line_search == "cascade" and cfg.cascade_p1_backend == "pallas"))
     if not want:

@@ -1,6 +1,7 @@
-"""Build and bind the CUDA rollout kernels (csrc/*.cu) at first use.
+"""Build and bind the CUDA kernels (csrc/*.cu) at first use.
 
-One `nvcc` call compiles the sources into a shared library with a plain C
+One `nvcc` per source, all started together, compiles the sources to
+objects, and one more links them into a shared library with a plain C
 interface under `build/torch_kernels/<hash of sources and flags>/`, loaded
 with ctypes. The finished library is renamed into place, so a cut build
 leaves nothing that a later one would wait on. A failed build raises with
@@ -55,21 +56,34 @@ def build() -> str:
     of the shared library."""
     cu, files = _sources()
     out_dir = os.path.join(BUILD_ROOT, _digest(files))
-    lib_path = os.path.join(out_dir, "libmpc_rollout.so")
+    lib_path = os.path.join(out_dir, "libmpc_kernels.so")
     if os.path.isfile(lib_path):
         build_log.update(seconds=0.0, path=lib_path)
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH, *CFLAGS, "-shared", "-I", CSRC, "-o", tmp, *cu]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
+    jobs = []
+    for src in cu:
+        obj = os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [_nvcc(), *ARCH, *CFLAGS, "-c", "-I", CSRC, "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    logs = [proc.communicate(timeout=600)[0] for _, _, proc in jobs]  # wait for all
+    for (cmd, _, proc), out in zip(jobs, logs):
+        if proc.returncode:
+            raise RuntimeError(f"CUDA kernel build failed: {' '.join(cmd)}\n{out}")
+    tmp = f"{lib_path}.{tag}"
+    cmd = [_nvcc(), *ARCH, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                           timeout=600)
     if proc.returncode:
-        raise RuntimeError(f"CUDA kernel build failed: {' '.join(cmd)}\n{proc.stdout}")
+        raise RuntimeError(f"CUDA kernel link failed: {' '.join(cmd)}\n{proc.stdout}")
     os.replace(tmp, lib_path)
+    for _, obj, _ in jobs:
+        os.remove(obj)
     build_log.update(seconds=time.perf_counter() - t0, path=lib_path,
-                     ptxas=[ln for ln in proc.stdout.splitlines() if "ptxas" in ln])
+                     ptxas=[ln for out in logs for ln in out.splitlines() if "ptxas" in ln])
     return lib_path
 
 
@@ -90,5 +104,10 @@ def library() -> ctypes.CDLL:
         lib.mpc_error_string.restype = ctypes.c_char_p
         lib.mpc_smem_bytes.argtypes = [I, I, I, I, I, I, I]
         lib.mpc_smem_bytes.restype = LL
+        # A, B, lx, lu, lxx, luu, reg, pd_bump, K, kff, N, nx, nu, stream
+        lib.mpc_riccati_backward.argtypes = [P] * 7 + [F, P, P, I, I, I, P]
+        lib.mpc_riccati_backward.restype = I
+        lib.mpc_riccati_smem_bytes.argtypes = [I, I]
+        lib.mpc_riccati_smem_bytes.restype = LL
         _lib = lib
         return lib

@@ -109,6 +109,7 @@ sys.path.insert(0, {ROOT!r})
 import chip_smoke
 import mpc_ilqr_tpu_torch, mpc_ilqr_tpu_torch.interop, mpc_ilqr_tpu_torch.ops.step_plan
 import mpc_ilqr_tpu_torch.ops.rollout_kernel, mpc_ilqr_tpu_torch.ops._build
+import mpc_ilqr_tpu_torch.ops.riccati, mpc_ilqr_tpu_torch.scenarios
 from mpc_ilqr_tpu_torch.io.config import load_config
 from mpc_ilqr_tpu_torch.mpc import runner, controller
 from mpc_ilqr_tpu_torch.models.robot import standing_state
@@ -121,15 +122,26 @@ state, u, diag = controller.step_once(prob.model, prob.cp, prob.cfg, prob.refs,
                                       controller.init_state(prob.model, prob.cfg), x,
                                       plan=prob.plan)
 assert diag.solve_ok and bool(u.isfinite().all()), diag
+import dataclasses
+from mpc_ilqr_tpu_torch import scenarios
+lh, _ = scenarios.long_horizon(tuned=True, device="cpu")
+lh = lh._replace(cfg=dataclasses.replace(lh.cfg, N=6))
+assert lh.cfg.backward == "pallas" and lh.cfg.n_substeps == 1
+state, u, diag_lh = controller.step_once(lh.model, lh.cp, lh.cfg, lh.refs,
+                                         controller.init_state(lh.model, lh.cfg),
+                                         standing_state(lh.model), plan=lh.plan)
+assert diag_lh.solve_ok and bool(u.isfinite().all()), diag_lh
 assert not any(m.split(".")[0] in {FORBIDDEN!r} for m in sys.modules), "reference stack leaked"
-print("POISONED_OK", prob.cfg.N, diag.iterations, float(diag.cost))
+print("POISONED_OK", prob.cfg.N, diag.iterations, float(diag.cost), lh.cfg.N)
 """
 
 
 def test_port_runs_with_reference_stack_poisoned():
     """Rehearse the card's run without the card: with jax, flax, yaml,
     mujoco and mpc_ilqr_tpu unimportable, import chip_smoke and the port,
-    then set up the flagship from config.yaml and take one MPC step on CPU."""
+    then set up the flagship from config.yaml and take one MPC step on CPU,
+    and one long-horizon step with backward="pallas" (K4's plain version) at
+    N=6."""
     code = POISONED_RUN.format(FORBIDDEN=set(FORBIDDEN), ROOT=ROOT,
                                config=os.path.join(ROOT, "config.yaml"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -161,7 +161,7 @@ def test_line_search_selects_like_reference(prob, nominal, mode):
 
 
 def test_unported_solver_options_raise():
-    for field, value in (("quad_mode", "exact"), ("backward", "pallas"),
+    for field, value in (("quad_mode", "exact"), ("backward", "assoc"),
                          ("linearization", "ad"), ("cost_mode", "full")):
         with pytest.raises(NotImplementedError):
             tsol.check_config(dataclasses.replace(tsol.ILQRConfig(), **{field: value}))

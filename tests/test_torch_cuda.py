@@ -1,9 +1,10 @@
-"""The port on the card: the CUDA rollout kernels against their plain
-versions, the wrappers' checks, the kernel gate and the flagship's first MPC
-steps. Every test here needs an NVIDIA GPU and skips without one.
+"""The port on the card: the CUDA kernels (K1-K4) against their plain
+versions, the wrappers' checks, the kernel gate, the flagship's first MPC
+steps and a long-horizon step through K4. Every test here needs an NVIDIA
+GPU and skips without one.
 
-This file imports only torch, numpy and the port, so it also runs on the GPU
-machine, which has no JAX:
+This file imports only torch, numpy, the port and chip_smoke (for its
+Riccati problems), so it also runs on the GPU machine, which has no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -12,6 +13,8 @@ import os
 import numpy as np
 import pytest
 import torch
+
+from chip_smoke import RICCATI_REG, RICCATI_T_BAD, riccati_problem
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 2e-4  # the JAX package's kernel tolerance, tests/test_ops.py:165, :214
@@ -194,4 +197,72 @@ def test_flagship_steps_through_the_kernels(card):
     torch.cuda.synchronize()
     assert all(hist["solve_ok"]) and bool(torch.isfinite(hist["x"]).all())
     assert 1.0 < float(xT[2]) < 1.1
+    assert rk.LAUNCHES["rollout"] >= 1 and rk.LAUNCHES["linesearch"] >= 1
+
+
+def _riccati_inputs(N, nx, nu, case="plain"):
+    """chip_smoke.riccati_problem (tests/test_ops.py:14-26's random problem,
+    with the bump cases) in float32 on the card."""
+    return [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+            for a in riccati_problem(N, nx, nu, case)]
+
+
+@pytest.mark.parametrize("N,nx,nu,reg,case", [(10, 51, 19, 1e-6, "plain"),
+                                               (4, 13, 5, 1e-5, "plain"),
+                                               (10, 51, 19, RICCATI_REG, "rescued")])
+def test_riccati_kernel_matches_plain_and_counts_its_launch(card, N, nx, nu, reg, case):
+    """K4 against its plain version at the JAX package's Riccati bar
+    (rtol 2e-3, atol 2e-4, tests/test_ops.py:36-37); "rescued" puts an exact
+    zero pivot at one step, where the PD bump must fire in the kernel too."""
+    from mpc_ilqr_tpu_torch.ops import riccati
+
+    args = _riccati_inputs(N, nx, nu, case)
+    before = riccati.LAUNCHES["riccati"]
+    K, k = riccati.backward_pass_kernel(*args, torch.tensor(reg, device="cuda"), 1e-4)
+    torch.cuda.synchronize()
+    assert riccati.LAUNCHES["riccati"] == before + 1
+    K_p, k_p = riccati.backward_pass_plain(*args, reg, 1e-4)
+    assert K.shape == (N, nu, nx) and k.shape == (N, nu) and K.is_cuda
+    assert bool(torch.isfinite(K).all()) and bool(torch.isfinite(k).all())
+    np.testing.assert_allclose(K.cpu().numpy(), K_p.cpu().numpy(), rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(k.cpu().numpy(), k_p.cpu().numpy(), rtol=2e-3, atol=2e-4)
+    if case == "rescued":  # without the bump k there would be NaN; with it, -lu / pd_bump
+        assert abs(float(k[RICCATI_T_BAD, 3]) + float(args[3][RICCATI_T_BAD, 3]) / 1e-4) < 1.0
+
+
+def test_riccati_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    from mpc_ilqr_tpu_torch.ops import riccati
+
+    args = _riccati_inputs(4, 13, 5)
+    with pytest.raises(ValueError):  # float64
+        riccati.backward_pass_kernel(*(a.double() for a in args), 1e-6, 1e-4)
+    with pytest.raises(ValueError):  # non-contiguous luu
+        riccati.backward_pass_kernel(*args[:5], args[5].transpose(1, 2), 1e-6, 1e-4)
+    with pytest.raises(ValueError):  # nx above the kernel's maximum
+        riccati.backward_pass_kernel(*_riccati_inputs(2, riccati.MAX_NX + 1, 5), 1e-6, 1e-4)
+    with pytest.raises(ValueError):  # nu above the kernel's maximum
+        riccati.backward_pass_kernel(*_riccati_inputs(2, 13, riccati.MAX_NU + 1), 1e-6, 1e-4)
+
+
+def test_long_horizon_step_runs_through_k4(card):
+    """One MPC step of the tuned long-horizon path (N=100, backward
+    "pallas"): the solve is ok, the plant stays near standing and every
+    backward pass was a K4 launch (inner_attempts=1: one per iteration)."""
+    from mpc_ilqr_tpu_torch import scenarios
+    from mpc_ilqr_tpu_torch.models.robot import standing_state
+    from mpc_ilqr_tpu_torch.mpc import controller
+    from mpc_ilqr_tpu_torch.ops import riccati
+    from mpc_ilqr_tpu_torch.ops import rollout_kernel as rk
+
+    prob, _ = scenarios.long_horizon(tuned=True)
+    assert prob.cfg.N == 100 and prob.cfg.backward == "pallas" and prob.cfg.inner_attempts == 1
+    riccati.reset_launch_counts()
+    rk.reset_launch_counts()
+    _, xT, hist = controller.run_closed_loop(prob.model, prob.cp, prob.cfg, prob.refs,
+                                             controller.init_state(prob.model, prob.cfg),
+                                             standing_state(prob.model), 1, plan=prob.plan)
+    torch.cuda.synchronize()
+    assert hist["solve_ok"] == [True] and bool(torch.isfinite(xT).all())
+    assert 1.0 < float(xT[2]) < 1.1
+    assert riccati.LAUNCHES["riccati"] == hist["iterations"][0] >= 1
     assert rk.LAUNCHES["rollout"] >= 1 and rk.LAUNCHES["linesearch"] >= 1
