@@ -10,10 +10,11 @@ Phases, each printing its wall seconds:
   3. kernels  K1, K2 (A=1) and K3 (A=7) at the main path's shapes (H1, N=25)
               against their plain PyTorch versions on the same inputs: at
               atol 2e-4 (the JAX package's kernel tolerance) on its kernel
-              tests' model; on the main path's model against float64, at
-              atol 2e-4 over the first two steps from standing (the stiction
-              regime) and, over N=25, no further than float32 allows; then
-              timed with CUDA events
+              tests' model, with the kernel's and plain float32's distance
+              from float64 printed beside it; on the main path's model
+              against float64, at atol 2e-4 over the first two steps from
+              standing (the stiction regime) and, over N=25, no further than
+              float32 allows; then timed with CUDA events
   4. loop     config.yaml with the standing references: 15 MPC steps of
               run_closed_loop on the card in float32, held to finite states,
               every solve_ok, base z in (1.0, 1.1), last cost below the
@@ -99,6 +100,42 @@ def chain_flops(model, xs, feedback):
         lambda x: engine.contact_geometry(model, forward_kinematics(model, x[:nq]))[3])(states)
     n_contact = float((active.double().cpu() * per_contact).sum())
     return int(round(states.shape[0] * fixed + n_contact))
+
+
+def standing_problem():
+    """The main path's problem: config.yaml with the standing references."""
+    from mpc_ilqr_tpu_torch.io.config import load_config
+    from mpc_ilqr_tpu_torch.mpc import runner
+
+    app = load_config(os.path.join(ROOT, "config.yaml"))
+    app.q_ref_path = "data/q_standing.csv"
+    app.v_ref_path = "data/v_standing.csv"
+    app.contact_schedule_path = "data/contact_standing.csv"
+    return runner.setup(app)
+
+
+def kernel_inputs(model, alphas, N):
+    """The rollout kernels' inputs on the model's device at horizon N, from a
+    fixed seed as in tests/test_ops.py:181-193: x0 standing, `us` at gravity
+    compensation, ū those plus noise, x̄ the plain rollout of ū, random K and
+    k; `a1` the first alpha, `a7` the seven after it."""
+    import numpy as np
+    import torch
+    from mpc_ilqr_tpu_torch.dynamics import engine
+    from mpc_ilqr_tpu_torch.models.robot import standing_state
+    from mpc_ilqr_tpu_torch.ops import rollout_kernel as rk
+
+    rng = np.random.default_rng(0)
+    t32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                    device=model.device).contiguous()
+    x0 = standing_state(model)
+    u_grav = engine.gravity_comp(model, x0)
+    ubar = (u_grav[None] + t32(0.1 * rng.normal(0, 1, (N, model.nu)))).contiguous()
+    return dict(x0=x0, us=u_grav[None].repeat(N, 1).contiguous(), ubar=ubar,
+                xbar=rk.rollout_plain(model, x0, ubar).contiguous(),
+                K=t32(0.01 * rng.normal(0, 1, (N, model.nu, model.nx))),
+                kff=t32(0.1 * rng.normal(0, 1, (N, model.nu))),
+                a1=t32(alphas[:1]), a7=t32(alphas[1:]))
 
 
 def riccati_flops(N, nx, nu, n_bumps):
@@ -209,13 +246,12 @@ def main() -> int:
     from mpc_ilqr_tpu_torch.costs.references import extract_window
     from mpc_ilqr_tpu_torch.dynamics import engine
     from mpc_ilqr_tpu_torch.ilqr import solver
-    from mpc_ilqr_tpu_torch.io.config import load_config
     from mpc_ilqr_tpu_torch.models.robot import load_h1, standing_state
-    from mpc_ilqr_tpu_torch.mpc import controller, runner
+    from mpc_ilqr_tpu_torch.mpc import controller
     from mpc_ilqr_tpu_torch.ops import _build
     from mpc_ilqr_tpu_torch.ops import riccati
     from mpc_ilqr_tpu_torch.ops import rollout_kernel as rk
-    from mpc_ilqr_tpu_torch.ops.step_plan import build_step_plan
+    from mpc_ilqr_tpu_torch.ops.step_plan import build_step_plan, model_bytes
 
     def reset_counts():
         rk.reset_launch_counts()
@@ -235,19 +271,16 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions ---------------------------
     t0 = time.perf_counter()
-    app = load_config(os.path.join(ROOT, "config.yaml"))
-    app.q_ref_path = "data/q_standing.csv"
-    app.v_ref_path = "data/v_standing.csv"
-    app.contact_schedule_path = "data/contact_standing.csv"
-    prob = runner.setup(app)  # device "cuda", float32
+    prob = standing_problem()  # device "cuda", float32
     model, cp, cfg, refs, plan = prob.model, prob.cp, prob.cfg, prob.refs, prob.plan
     if plan is None or model.device.type != "cuda":
         fail("setup did not place the problem and its kernel plan on the card")
     N, nx, nu, dev = cfg.N, model.nx, model.nu, model.device
     smem = lib.mpc_smem_bytes(plan.fbuf.numel(), plan.ibuf.numel(), plan.B, plan.nq, plan.nv,
                               plan.nu, plan.ncp)
-    print(f"shared memory per block (H1): {smem} bytes; packed model "
-          f"{4 * (plan.fbuf.numel() + plan.ibuf.numel())} bytes")
+    print(f"shared memory per block (H1): {smem} bytes; packed plan "
+          f"{4 * (plan.fbuf.numel() + plan.ibuf.numel())} bytes, of them the model "
+          f"{model_bytes(plan)} bytes")
     tpu_id = {"rollout": "K1", "linesearch": "K2", "linesearch_batched": "K3"}
     replaces = {"rollout": "mpc_ilqr_tpu/ops/rollout_kernel.py:61",
                 "linesearch": "mpc_ilqr_tpu/ops/rollout_kernel.py:108",
@@ -255,19 +288,10 @@ def main() -> int:
 
     def kernel_cases(m, p, N=N):
         """(kernel, plain, A, feedback) per entry point at the main path's
-        shapes (H1, N=25 unless given; A=1 and the 7 fallback alphas), inputs
-        from a fixed seed as in tests/test_ops.py:181-193."""
-        rng = np.random.default_rng(0)
-        t32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev).contiguous()
-        x0 = standing_state(m)
-        u_grav = engine.gravity_comp(m, x0)
-        us_grav = u_grav[None].repeat(N, 1).contiguous()
-        ubar = (u_grav[None] + t32(0.1 * rng.normal(0, 1, (N, nu)))).contiguous()
-        xbar = rk.rollout_plain(m, x0, ubar).contiguous()
-        K = t32(0.01 * rng.normal(0, 1, (N, nu, nx)))
-        kff = t32(0.1 * rng.normal(0, 1, (N, nu)))
-        a1, a7 = t32(cfg.alphas[:1]), t32(cfg.alphas[1:])
-        ls = (x0, xbar, ubar, K, kff)
+        shapes (H1, N=25 unless given; A=1 and the 7 fallback alphas)."""
+        i = kernel_inputs(m, cfg.alphas, N)
+        x0, us_grav, a1, a7 = i["x0"], i["us"], i["a1"], i["a7"]
+        ls = (x0, i["xbar"], i["ubar"], i["K"], i["kff"])
         # The plain versions take (model, dtype) so they also run in float64.
         cast = lambda dt, *ts: [t.to(dt) for t in ts]
         return {
@@ -308,13 +332,15 @@ def main() -> int:
     #     (plain float32 is within about 5e-5 of float64 here, tools/port_f32_floor.py),
     #     so the kernel is held to float64 at atol 2e-4.
     stiction_cases = kernel_cases(model, plan, 2)
-    model64 = model.to(dtype=torch.float64)
+    model64, ref_model64 = model.to(dtype=torch.float64), ref_model.to(dtype=torch.float64)
     report = {}
     for name in ref_cases:
         kern, plain, _, _ = ref_cases[name]
-        err = max_err(kern(), plain())
+        got, p32, p64 = kern(), plain(), plain(ref_model64, torch.float64)
+        err, r_k, r_p = max_err(got, p32), max_err(got, p64), max_err(p32, p64)
         print(f"{tpu_id[name]} {rk.CUDA_KERNEL[name]} (reference test model): "
-              f"max|kernel - plain| = {err:.3e} (atol {ATOL})")
+              f"max|kernel - plain| = {err:.3e} (atol {ATOL}); diagnostic: |kernel-plain64| "
+              f"{r_k:.3e}, |plain32-plain64| {r_p:.3e}")
         if not err <= ATOL:
             fail(f"{name}: kernel disagrees with its plain version ({err:.3e} > {ATOL})")
         kern, plain, _, _ = stiction_cases[name]
@@ -338,9 +364,8 @@ def main() -> int:
             n_out = A * ((N + 1) * nx + N * nu)
         else:
             n_in, n_out = nx + N * nu, (N + 1) * nx
-        model_bytes = 4 * (plan.fbuf.numel() + plan.ibuf.numel())
         flops = chain_flops(model, got[0][:, :-1] if feedback else got[:-1], feedback)
-        n_bytes = 4 * (n_in + n_out) + model_bytes
+        n_bytes = 4 * (n_in + n_out) + model_bytes(plan)
         bound_ms, bound_by = bound(n_bytes, flops)
         print(f"  {ms:.4f} ms/launch (plain {plain_ms:.3f} ms; bound {bound_ms:.6f} ms by "
               f"{bound_by}: {n_bytes} bytes, {flops} flop)")
@@ -349,6 +374,7 @@ def main() -> int:
                             replaces=replaces[name], launches=0, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=None, bytes=n_bytes, flops=flops,
+                            ref_model_err_vs_f64=r_k, ref_model_plain32_err_vs_f64=r_p,
                             stiction_err_vs_f64=e_s, main_model_err_vs_f64=e_k,
                             main_model_plain32_err_vs_f64=e_p)
     phase("kernels", t0)

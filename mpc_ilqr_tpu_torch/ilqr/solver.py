@@ -40,9 +40,10 @@ from mpc_ilqr_tpu_torch.ops import rollout_kernel as rk
 class ILQRConfig:
     """Solver configuration; defaults mirror ilqr.cpp:16 and ilqr.cpp:320.
 
-    Same fields as the reference's ILQRConfig where ported. linearization and
-    quad_mode default to the shipped modes: the reference's defaults ("ad",
-    "exact") are not ported yet and raise in `check_config`."""
+    Same fields and defaults as the reference's ILQRConfig where ported.
+    The default linearization ("ad") and quad_mode ("exact") are not ported
+    yet: `check_config` raises on them, so callers name the shipped modes
+    ("structured_frozen_mass", "gn"), as config.yaml does."""
 
     N: int = 25
     max_iterations: int = 10
@@ -58,12 +59,12 @@ class ILQRConfig:
     n_substeps: int = 1  # physics substeps per horizon step (dt/physics_dt)
     line_search: str = "first_accept"  # "first_accept" | "argmin" | "cascade"
     backward: str = "scan"  # "scan": the Riccati loop below; "pallas": K4
-    linearization: str = "structured_frozen_mass"  # or "structured"
+    linearization: str = "ad"  # ported: "structured", "structured_frozen_mass"
     rollout_backend: str = "xla"  # "pallas": K1
     ls_backend: str = "xla"  # "pallas": K2, "pallas_batched": K3
     cascade_p1_backend: str = "pallas"  # phase-1 (α=1) chain: K2 or "xla"
     inner_attempts: int = 2  # 2: retry a failed line search once with λ×10; 1: no retry
-    quad_mode: str = "gn"  # Gauss-Newton task Hessians
+    quad_mode: str = "exact"  # ported: "gn" (Gauss-Newton task Hessians)
     # "while" or "scan", kept for parity with the reference's config. Its
     # "scan" runs max_iterations trips and freezes the carry once done; a
     # frozen carry gives the solution and the iteration count of "while", so
@@ -119,6 +120,9 @@ def rollout(model: RobotModel, cfg: ILQRConfig, x0, us, plan=None) -> torch.Tens
 
 def linearize(model: RobotModel, cfg: ILQRConfig, xs, us):
     """A (N, nx, nx), B (N, nx, nu) from engine.step_and_jac at every knot."""
+    if cfg.linearization not in _SUPPORTED["linearization"]:
+        raise NotImplementedError(f"ILQRConfig.linearization={cfg.linearization!r} is not "
+                                  f"ported; this package has {_SUPPORTED['linearization']}")
     frozen = cfg.linearization == "structured_frozen_mass"
     _, A, B = vmap(lambda x, u: engine.step_and_jac(model, x, u, cfg.n_substeps, frozen))(
         xs[:-1], us)

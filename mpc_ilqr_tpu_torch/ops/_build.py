@@ -5,7 +5,9 @@ objects, and one more links them into a shared library with a plain C
 interface under `build/torch_kernels/<hash of sources and flags>/`, loaded
 with ctypes. The finished library is renamed into place, so a cut build
 leaves nothing that a later one would wait on. A failed build raises with
-nvcc's output.
+nvcc's output. `build` also takes another csrc/ directory and build root,
+so that an earlier design of the kernels can be built beside the current
+one (tools/port_rollout_designs.py).
 """
 from __future__ import annotations
 
@@ -36,10 +38,10 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _sources():
-    names = sorted(os.listdir(CSRC))
-    return ([os.path.join(CSRC, n) for n in names if n.endswith(".cu")],
-            [os.path.join(CSRC, n) for n in names if n.endswith((".cu", ".cuh"))])
+def _sources(csrc):
+    names = sorted(os.listdir(csrc))
+    return ([os.path.join(csrc, n) for n in names if n.endswith(".cu")],
+            [os.path.join(csrc, n) for n in names if n.endswith((".cu", ".cuh"))])
 
 
 def _digest(files) -> str:
@@ -51,11 +53,11 @@ def _digest(files) -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> str:
-    """Compile csrc/*.cu (unless this exact build exists) and return the path
-    of the shared library."""
-    cu, files = _sources()
-    out_dir = os.path.join(BUILD_ROOT, _digest(files))
+def build(csrc: str = CSRC, root: str = BUILD_ROOT) -> str:
+    """Compile csrc/*.cu (unless this exact build exists under root) and
+    return the path of the shared library."""
+    cu, files = _sources(csrc)
+    out_dir = os.path.join(root, _digest(files))
     lib_path = os.path.join(out_dir, "libmpc_kernels.so")
     if os.path.isfile(lib_path):
         build_log.update(seconds=0.0, path=lib_path)
@@ -66,7 +68,7 @@ def build() -> str:
     jobs = []
     for src in cu:
         obj = os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
-        cmd = [_nvcc(), *ARCH, *CFLAGS, "-c", "-I", CSRC, "-o", obj, src]
+        cmd = [_nvcc(), *ARCH, *CFLAGS, "-c", "-I", csrc, "-o", obj, src]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.STDOUT, text=True)))
     logs = [proc.communicate(timeout=600)[0] for _, _, proc in jobs]  # wait for all
@@ -83,31 +85,36 @@ def build() -> str:
     for _, obj, _ in jobs:
         os.remove(obj)
     build_log.update(seconds=time.perf_counter() - t0, path=lib_path,
-                     ptxas=[ln for out in logs for ln in out.splitlines() if "ptxas" in ln])
+                     ptxas=[ln for out in logs for ln in out.splitlines()
+                            if "ptxas" in ln or "spill" in ln])
     return lib_path
 
 
+def bind(lib_path: str) -> ctypes.CDLL:
+    """Load a built library and declare its C interface."""
+    lib = ctypes.CDLL(lib_path)
+    P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    model = [P, P, I, I, I, I, I, I, I]  # fbuf, ibuf, n_float, n_int, B, nq, nv, nu, ncp
+    lib.mpc_rollout_open.argtypes = model + [P, P, P, I, I, F, P]
+    lib.mpc_rollout_open.restype = I
+    lib.mpc_rollout_feedback.argtypes = model + [P, P, P, P, P, P, I, P, P, I, I, F, P]
+    lib.mpc_rollout_feedback.restype = I
+    lib.mpc_error_string.argtypes = [I]
+    lib.mpc_error_string.restype = ctypes.c_char_p
+    lib.mpc_smem_bytes.argtypes = [I, I, I, I, I, I, I]
+    lib.mpc_smem_bytes.restype = LL
+    # A, B, lx, lu, lxx, luu, reg, pd_bump, K, kff, N, nx, nu, stream
+    lib.mpc_riccati_backward.argtypes = [P] * 7 + [F, P, P, I, I, I, P]
+    lib.mpc_riccati_backward.restype = I
+    lib.mpc_riccati_smem_bytes.argtypes = [I, I]
+    lib.mpc_riccati_smem_bytes.restype = LL
+    return lib
+
+
 def library() -> ctypes.CDLL:
-    """The bound kernel library (built on first call)."""
+    """The bound kernel library of csrc/ (built on first call)."""
     global _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(build())
-        P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        model = [P, P, I, I, I, I, I, I, I]  # fbuf, ibuf, n_float, n_int, B, nq, nv, nu, ncp
-        lib.mpc_rollout_open.argtypes = model + [P, P, P, I, I, F, P]
-        lib.mpc_rollout_open.restype = I
-        lib.mpc_rollout_feedback.argtypes = model + [P, P, P, P, P, P, I, P, P, I, I, F, P]
-        lib.mpc_rollout_feedback.restype = I
-        lib.mpc_error_string.argtypes = [I]
-        lib.mpc_error_string.restype = ctypes.c_char_p
-        lib.mpc_smem_bytes.argtypes = [I, I, I, I, I, I, I]
-        lib.mpc_smem_bytes.restype = LL
-        # A, B, lx, lu, lxx, luu, reg, pd_bump, K, kff, N, nx, nu, stream
-        lib.mpc_riccati_backward.argtypes = [P] * 7 + [F, P, P, I, I, I, P]
-        lib.mpc_riccati_backward.restype = I
-        lib.mpc_riccati_smem_bytes.argtypes = [I, I]
-        lib.mpc_riccati_smem_bytes.restype = LL
-        _lib = lib
-        return lib
+        if _lib is None:
+            _lib = bind(build())
+        return _lib

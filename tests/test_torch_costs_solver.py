@@ -112,7 +112,8 @@ def test_linearize_matches_reference(prob, nominal):
     """structured_frozen_mass A, B at every knot of the horizon (1e-9)."""
     jm, cp, refs, tm, tcp, trefs, xs, us = prob
     xbar, A, B = nominal[:3]
-    tA, tB = tsol.linearize(tm, tsol.ILQRConfig(N=N), torch.tensor(xbar), torch.tensor(us))
+    cfg = tsol.ILQRConfig(N=N, linearization="structured_frozen_mass")
+    tA, tB = tsol.linearize(tm, cfg, torch.tensor(xbar), torch.tensor(us))
     np.testing.assert_allclose(tA.numpy(), A, rtol=0, atol=1e-9)
     np.testing.assert_allclose(tB.numpy(), B, rtol=0, atol=1e-9)
 
@@ -160,8 +161,29 @@ def test_line_search_selects_like_reference(prob, nominal, mode):
     assert abs(float(best_t) - float(best_j)) <= 1e-9 * max(1.0, abs(float(best_j)))
 
 
+SUPPORTED = dict(linearization="structured_frozen_mass", quad_mode="gn")  # config.yaml's
+
+
 def test_unported_solver_options_raise():
+    """Each unported value raises for its own field on an otherwise
+    supported config."""
+    ok = tsol.ILQRConfig(**SUPPORTED)
+    tsol.check_config(ok)
     for field, value in (("quad_mode", "exact"), ("backward", "assoc"),
                          ("linearization", "ad"), ("cost_mode", "full")):
-        with pytest.raises(NotImplementedError):
-            tsol.check_config(dataclasses.replace(tsol.ILQRConfig(), **{field: value}))
+        with pytest.raises(NotImplementedError, match=f"ILQRConfig.{field}="):
+            tsol.check_config(dataclasses.replace(ok, **{field: value}))
+    with pytest.raises(NotImplementedError, match="ILQRConfig.linearization="):
+        tsol.linearize(None, dataclasses.replace(ok, linearization="fd"), None, None)
+
+
+SHARED_FIELDS = sorted({f.name for f in dataclasses.fields(tsol.ILQRConfig)}
+                       & {f.name for f in dataclasses.fields(jsol.ILQRConfig)})
+
+
+@pytest.mark.parametrize("field", SHARED_FIELDS)
+def test_ilqr_config_default_matches_reference(field):
+    """Every field the two ILQRConfigs share defaults to the reference's
+    value, so `ILQRConfig()` means the same solver in both packages (or
+    raises in the port, where that mode is not ported)."""
+    assert getattr(tsol.ILQRConfig(), field) == getattr(jsol.ILQRConfig(), field)

@@ -84,6 +84,64 @@ def test_kernel_matches_plain_and_counts_its_launch(card, which):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0, atol=ATOL)
 
 
+def test_batched_chains_equal_single_alpha_launches_bit_for_bit(card):
+    """K3 at A=7 is seven independent chains: each equals a K2 launch at its
+    alpha alone, bit for bit (one block per chain, no atomics, no sums across
+    chains)."""
+    from mpc_ilqr_tpu_torch.ilqr.solver import ILQRConfig
+    from mpc_ilqr_tpu_torch.ops import rollout_kernel as rk
+
+    m, plan = card
+    x0, xbar, ubar, K, kff = _ls_inputs(m, 25)
+    alphas = torch.tensor(ILQRConfig().alphas[1:], device="cuda")
+    xs7, us7 = rk.linesearch_rollout_kernel_batched(m, plan, x0, xbar, ubar, K, kff, alphas)
+    for a in range(alphas.shape[0]):
+        xs1, us1 = rk.linesearch_rollout_kernel(m, plan, x0, xbar, ubar, K, kff,
+                                                alphas[a:a + 1].contiguous())
+        assert torch.equal(xs7[a], xs1[0]) and torch.equal(us7[a], us1[0])
+
+
+def test_zero_feedback_chain_equals_open_chain_bit_for_bit(card):
+    """K2 with K = 0, k = 0 and ū = us applies u_t = us_t exactly, so its
+    states equal K1's bit for bit."""
+    from mpc_ilqr_tpu_torch.ops import rollout_kernel as rk
+
+    m, plan = card
+    x0, xbar, ubar, K, kff = _ls_inputs(m, 25)
+    xs_open = rk.rollout_kernel(m, plan, x0, ubar)
+    xs_fb, us_fb = rk.linesearch_rollout_kernel(m, plan, x0, xbar, ubar, torch.zeros_like(K),
+                                                torch.zeros_like(kff),
+                                                torch.ones(1, device="cuda"))
+    assert torch.equal(xs_fb[0], xs_open) and torch.equal(us_fb[0], ubar)
+
+
+def test_kernels_take_a_model_wider_than_a_warp():
+    """h1_with_hand (46 bodies, nv=51 > 32 lanes, no contact points) takes the
+    kernels' shared-memory factor and their loops over lanes. K1 and K2
+    against their plain versions over 10 steps at atol 2e-4, the JAX
+    package's kernel tolerance: without contact the float32 chains do not
+    amplify round-off, so both sit far inside it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mpc_ilqr_tpu_torch.models.robot import load_robot
+    from mpc_ilqr_tpu_torch.ops import rollout_kernel as rk
+    from mpc_ilqr_tpu_torch.ops.step_plan import build_step_plan
+
+    m = load_robot(os.path.join(ROOT, "robots/h1_description/mjcf/h1_with_hand.xml"),
+                   gravity=(0.0, 0.0, -1.0), timestep=0.02)
+    assert (m.nv, m.ncp, m.nbody) == (51, 0, 46)
+    plan = build_step_plan(m)
+    x0, xbar, ubar, K, kff = _ls_inputs(m, 10)
+    alphas = torch.tensor([1.0, 0.5], device="cuda")
+    got = (rk.rollout_kernel(m, plan, x0, ubar),
+           *rk.linesearch_rollout_kernel(m, plan, x0, xbar, ubar, K, kff, alphas))
+    want = (rk.rollout_plain(m, x0, ubar),
+            *rk.linesearch_rollout_plain(m, x0, xbar, ubar, K, kff, alphas))
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0, atol=ATOL)
+
+
 def test_one_step_matches_float64_on_the_main_path_model():
     """One step of K1 from perturbed, in-contact states of the config.yaml
     model: as close to the float64 plain step as the float32 plain step is

@@ -135,7 +135,10 @@ def test_step_plan_packs_the_model():
     assert (hdr["free_qpos"], hdr["free_dof"], hdr["free_body"]) == (0, 0, 0)
     B, nv = tm.nbody, tm.nv
     np.testing.assert_array_equal(ib[hdr["i_parent"]: hdr["i_parent"] + B], tm.body_parent)
-    np.testing.assert_array_equal(ib[hdr["i_act_dof"]: hdr["i_act_dof"] + tm.nu], tm.act_dof_adr)
+    act_ptr = ib[hdr["i_act_ptr"]: hdr["i_act_ptr"] + nv + 1]
+    act = ib[hdr["i_act"]: hdr["i_act"] + tm.nu]
+    assert [tm.act_dof_adr[a] for a in act] == [k for k in range(nv)
+                                                for _ in range(act_ptr[k], act_ptr[k + 1])]
     lev_ptr = ib[hdr["i_lev_ptr"]: hdr["i_lev_ptr"] + hdr["nlev"] + 1]
     order = ib[hdr["i_lev_body"]: hdr["i_lev_body"] + B]
     assert lev_ptr[0] == 0 and lev_ptr[-1] == B and sorted(order) == list(range(B))
@@ -143,9 +146,8 @@ def test_step_plan_packs_the_model():
         earlier = set(order[: lev_ptr[lv]])
         assert all(tm.body_parent[b] in earlier or tm.body_parent[b] < 0
                    for b in order[lev_ptr[lv]: lev_ptr[lv + 1]])
-    for f, n in (("body_quat", 4 * B), ("ancestor_mask", B * nv), ("cp_pos", 3 * tm.ncp)):
-        key = {"ancestor_mask": "f_anc"}.get(f, "f_" + f)
-        np.testing.assert_array_equal(fb[hdr[key]: hdr[key] + n],
+    for f, n in (("body_quat", 4 * B), ("dof_armature", nv), ("cp_pos", 3 * tm.ncp)):
+        np.testing.assert_array_equal(fb[hdr["f_" + f]: hdr["f_" + f] + n],
                                       getattr(tm, f).numpy().reshape(-1))
     np.testing.assert_array_equal(fb[hdr["f_contact"]: hdr["f_contact"] + 4],
                                   np.float32([5000.0, 300.0, 1.0, 100.0]))
