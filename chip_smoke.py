@@ -19,13 +19,16 @@ Phases, each printing its wall seconds:
               run_closed_loop on the card in float32, held to finite states,
               every solve_ok, base z in (1.0, 1.1), last cost below the
               first, and K1/K2 launched; then timed once more
-  5. riccati  K4 against its plain version: on tests/test_ops.py's random
-              inputs at (N, nx, nu) = (10, 51, 19) and (4, 13, 5), and where
-              the PD bump fires, at the JAX package's Riccati bar (rtol 2e-3,
-              atol 2e-4, tests/test_ops.py:36-37); on the long-horizon path's
-              own inputs (N=100) against float64, K and kff each no further
-              than float32 allows; then timed at N=25 and N=100 beside the
-              plain version and the port's torch.linalg loop
+  5. riccati  K4's shared memory (its registers and spills are among
+              phase 2's ptxas lines); K4 against its plain version: on
+              tests/test_ops.py's random inputs at (N, nx, nu) = (10, 51, 19)
+              and (4, 13, 5), and where the PD bump fires, at the JAX
+              package's Riccati bar (rtol 2e-3, atol 2e-4,
+              tests/test_ops.py:36-37); on the long-horizon path's own inputs
+              (N=100) against float64, K and kff each no further than float32
+              allows; each reading beside K4's first design's; then timed at
+              N=25 and N=100 beside the plain version and the port's
+              torch.linalg loop
   6. long horizon  scenarios.long_horizon (N=100, dt 0.01, backward "pallas")
               in two variants, (a) tuned, 5 MPC steps and (b) tuned, one
               iteration, a solve every 2nd of 6 control steps; each held to
@@ -56,6 +59,16 @@ LH_ANCHORS = ("TPU-era long-horizon anchors (information only): final cost 2.307
 RICCATI_RTOL, RICCATI_ATOL = 2e-3, 2e-4  # tests/test_ops.py:36-37
 RICCATI_REG = 2.0 ** -20  # ~1e-6, exact in float32 (the bump case needs an exact zero pivot)
 RICCATI_T_BAD = 6  # the step where riccati_problem's bump cases put their pivot
+# Phase 5's reference cases: (N, nx, nu, riccati_problem case, λ).
+RICCATI_CASES = ((10, 51, 19, "plain", 1e-6), (4, 13, 5, "plain", 1e-5),
+                 (10, 51, 19, "rescued", RICCATI_REG), (10, 51, 19, "indefinite", RICCATI_REG))
+# K4's first design (seven block phases per knot, one output per thread) on
+# phase 5's inputs, printed beside this design's readings: max|kernel - plain|
+# per reference case and |kernel - plain64| of K and kff on the long-horizon
+# inputs (tools/port_riccati_designs.py; NVIDIA H100 80GB HBM3, 700.00 W).
+FIRST_K4 = {(10, 51, 19, "plain"): 2.384e-06, (4, 13, 5, "plain"): 3.576e-07,
+            (10, 51, 19, "rescued"): 1.907e-06, (10, 51, 19, "indefinite"): 9.537e-07,
+            "K": 1.397e-2, "kff": 1.223e-3}
 
 
 def fail(msg: str) -> None:
@@ -136,6 +149,31 @@ def kernel_inputs(model, alphas, N):
                 K=t32(0.01 * rng.normal(0, 1, (N, model.nu, model.nx))),
                 kff=t32(0.1 * rng.normal(0, 1, (N, model.nu))),
                 a1=t32(alphas[:1]), a7=t32(alphas[1:]))
+
+
+def long_horizon_inputs(device=None):
+    """The long-horizon path's own Riccati inputs at N=100: A, B and the GN
+    quadratics of window 0 along the cold-start rollout from standing at
+    gravity compensation. A dict of the problem (`prob`, tuned), `x0`,
+    `us`, `xs`, `window`, `A`, `B`, `quad` and `args`, the kernel's six
+    inputs (A, B, lx, lu, lxx, luu), contiguous."""
+    from mpc_ilqr_tpu_torch import scenarios
+    from mpc_ilqr_tpu_torch.costs.quadratics import quadraticize_gn
+    from mpc_ilqr_tpu_torch.costs.references import extract_window
+    from mpc_ilqr_tpu_torch.dynamics import engine
+    from mpc_ilqr_tpu_torch.ilqr import solver
+    from mpc_ilqr_tpu_torch.models.robot import standing_state
+
+    prob, _ = scenarios.long_horizon(tuned=True, device=device)
+    m, cfg = prob.model, prob.cfg
+    x0 = standing_state(m)
+    us = engine.gravity_comp(m, x0)[None].repeat(cfg.N, 1).contiguous()
+    xs = solver.rollout(m, cfg, x0, us, plan=prob.plan)
+    window = extract_window(prob.refs, 0, cfg.N)
+    A, B = solver.linearize(m, cfg, xs, us)
+    quad = quadraticize_gn(m, prob.cp, window, xs, us)
+    return dict(prob=prob, x0=x0, us=us, xs=xs, window=window, A=A, B=B, quad=quad,
+                args=[t.contiguous() for t in (A, B, *quad)])
 
 
 def riccati_flops(N, nx, nu, n_bumps):
@@ -244,7 +282,6 @@ def main() -> int:
     from mpc_ilqr_tpu_torch.costs.quadratics import (CostQuadratics, quadraticize_gn,
                                                      trajectory_costs)
     from mpc_ilqr_tpu_torch.costs.references import extract_window
-    from mpc_ilqr_tpu_torch.dynamics import engine
     from mpc_ilqr_tpu_torch.ilqr import solver
     from mpc_ilqr_tpu_torch.models.robot import load_h1, standing_state
     from mpc_ilqr_tpu_torch.mpc import controller
@@ -466,9 +503,7 @@ def main() -> int:
         return err
 
     k4_err = 0.0
-    for N_, nx_, nu_, case, reg_ in ((10, 51, 19, "plain", 1e-6), (4, 13, 5, "plain", 1e-5),
-                                     (10, 51, 19, "rescued", RICCATI_REG),
-                                     (10, 51, 19, "indefinite", RICCATI_REG)):
+    for N_, nx_, nu_, case, reg_ in RICCATI_CASES:
         args = [torch.as_tensor(a, dtype=torch.float32, device=dev)
                 for a in riccati_problem(N_, nx_, nu_, case)]
         got = riccati.backward_pass_kernel(*args, reg_, cfg.pd_bump)
@@ -478,22 +513,18 @@ def main() -> int:
             fail("K4: the PD bump did not rescue the zero pivot")
         k4_err = max(k4_err, e)
         print(f"K4 riccati_backward ({N_}, {nx_}, {nu_}) {case}: max|kernel - plain| = {e:.3e} "
-              f"(rtol {RICCATI_RTOL}, atol {RICCATI_ATOL}; non-finite at "
-              f"{int((~torch.isfinite(got[1])).any(1).sum())} of {N_} steps, as plain)")
+              f"(first design: {FIRST_K4[(N_, nx_, nu_, case)]:.3e}; rtol {RICCATI_RTOL}, atol "
+              f"{RICCATI_ATOL}; non-finite at {int((~torch.isfinite(got[1])).any(1).sum())} of "
+              f"{N_} steps, as plain)")
 
     # The long-horizon path's own inputs: A, B and the GN quadratics at N=100 along the
     # cold-start rollout from standing. The value function there is conditioned like the
     # flagship's contact chain, so two float32 recursions part by more than 2e-4; the
     # kernel is held to float64 no further than float32 allows.
-    lh, _ = scenarios.long_horizon(tuned=True)
-    lm, lcfg = lh.model, lh.cfg
-    lx0 = standing_state(lm)
-    lub = engine.gravity_comp(lm, lx0)[None].repeat(lcfg.N, 1).contiguous()
-    lxb = solver.rollout(lm, lcfg, lx0, lub, plan=lh.plan)
-    lwin = extract_window(lh.refs, 0, lcfg.N)
-    A_, B_ = solver.linearize(lm, lcfg, lxb, lub)
-    lq = quadraticize_gn(lm, lh.cp, lwin, lxb, lub)
-    lh_args = [t.contiguous() for t in (A_, B_, *lq)]
+    li = long_horizon_inputs()
+    lh, lx0, lub, lxb, lwin, A_, B_, lq = (li[k] for k in ("prob", "x0", "us", "xs", "window",
+                                                            "A", "B", "quad"))
+    lm, lcfg, lh_args = lh.model, lh.cfg, li["args"]
     reg_t, pd = torch.tensor(lcfg.reg_init, device=dev), lcfg.pd_bump
     got = riccati.backward_pass_kernel(*lh_args, reg_t, pd)
     p32 = riccati.backward_pass_plain(*lh_args, reg_t, pd)
@@ -506,9 +537,10 @@ def main() -> int:
         e_k, e_p, e_kp = max_err(got[j], p64[j]), max_err(p32[j], p64[j]), max_err(got[j], p32[j])
         bar = RICCATI_ATOL + 2.0 * e_p
         lh_err[out] = (e_k, e_p)
-        print(f"K4 on the long-horizon inputs (N={lcfg.N}), {out}: |kernel-plain64| {e_k:.3e}, "
-              f"|plain32-plain64| {e_p:.3e}, |kernel-plain32| {e_kp:.3e} (bar {bar:.3e}); "
-              f"max |{out}| {float(p64[j].abs().max()):.3e}")
+        print(f"K4 on the long-horizon inputs (N={lcfg.N}), {out}: |kernel-plain64| {e_k:.3e} "
+              f"(first design: {FIRST_K4[out]:.3e}), |plain32-plain64| {e_p:.3e}, "
+              f"|kernel-plain32| {e_kp:.3e} (bar {bar:.3e}); max |{out}| "
+              f"{float(p64[j].abs().max()):.3e}")
         if not e_k <= bar:
             fail(f"K4 {out} further from float64 than float32 allows ({e_k:.3e} > {bar:.3e})")
     print(f"  PD bumps on these inputs: at steps {sorted(bump_steps)}")

@@ -10,35 +10,62 @@
 // Qxu = AᵀVxxB and Quu = luu + BᵀVxxB + λI; factors Quu by Cholesky, and
 // when that factor has a non-finite entry adds pd_bump·I and factors again;
 // solves Quu [K | k] = −[Qxuᵀ | Qu]; writes K_t, k_t; and updates
-// Vx = Qx + Kᵀ(Quu k + Qu) + Qxu k, Vxx = Qxx + KᵀQuuK + KᵀQxuᵀ + QxuK,
-// symmetrized. The TPU kernel's padding to multiples of 8 and its
-// masked-matvec pivot access were Mosaic constraints (no dynamic value
-// indexing); here the sizes are runtime ints and the pivots are indexed.
-// Limits: nx ≤ kMaxNx, nu ≤ kMaxNu (the Cholesky runs in one warp, a lane
-// per row); mpc_riccati_backward refuses larger sizes.
+// Vx = Qx + Kᵀ(Quu k + Qu) + Qxu k, Vxx = ½(T + Tᵀ) with
+// T = Qxx + KᵀQuuK + KᵀQxuᵀ + QxuK. The TPU kernel's padding to multiples
+// of 8 and its masked-matvec pivot access were Mosaic constraints (no
+// dynamic value indexing); here the sizes are runtime ints and the pivots
+// are indexed. Limits: nx ≤ kMaxNx, nu ≤ kMaxNu (the Cholesky runs in one
+// warp, a lane per row); mpc_riccati_backward refuses larger sizes.
 //
 // Non-finite behaviour is the reference's: a non-positive pivot gives
 // rsqrtf's NaN or inf, which propagates into K, k and the value function,
-// as rsqrt does on the TPU. Nothing is clamped or skipped.
+// as rsqrt does on the TPU; the bump is one warp-wide decision over the
+// whole factor. Nothing is clamped or skipped. Full fp32 throughout.
 //
 // Bound on this card (H1: nx=51, nu=19; counts from chip_smoke.py's
-// riccati_flops, one triangle of each symmetric result). Operations: about
-// 0.81 Mflop per t — AᵀVxx 265k, one triangle of Qxx = lxx + AᵀVxx·A 135k,
-// BᵀVxx and Qxu 99k each, one triangle of the Vxx update 101k, the rest
-// about 0.11M, and 2.5k more where the PD bump fires — so 80.7 Mflop at
-// N=100, 1.20 µs at 67 TFLOP/s fp32 (this kernel computes the full squares,
-// about 1.11 Mflop per t). Bytes: A, B, lx, lu, lxx, luu read once and K, k written
-// once, 3.05 MB at N=100, 0.91 µs at 3.35 TB/s. The recursion is serial in
-// t, and each t is seven dependent block-wide phases (one barrier each)
-// plus 2·nu warp barriers per Cholesky and the nu-row substitutions, so the
-// pass is bound by latency — barriers and shared-memory round trips — not
-// by bytes or operations. The design keeps every operand of a step in
-// shared memory (A_t and B_t staged with coalesced loads, the carry never
-// leaves the block), spreads each product over the block with one thread
-// per output entry, runs the Cholesky in one warp so its pivots need warp
-// barriers only, and solves the nx+1 right-hand-side columns in parallel,
-// one thread each. Tensor cores (wgmma), TMA staging and several blocks are
-// left for later.
+// riccati_flops, one triangle of each symmetric result): about 0.81 Mflop
+// per t, 80.7 Mflop at N=100, 1.20 µs at 67 TFLOP/s fp32; 3.05 MB of inputs
+// and outputs at N=100, 0.91 µs at 3.35 TB/s. The recursion is serial in t,
+// so the pass is bound by latency: each t is a chain of dependent products
+// (about 0.5 M padded FMA on one SM) around a serial factor and solve. Per t,
+// four phases, one block barrier each:
+//   1. all warps: BᵀVV and AᵀVV, VV = [Vxx | Vx], so Qx and Qu come out of
+//      the same tiles as AᵀVxx and BᵀVxx (stored transposed);
+//   2. warps 0-3 form Quu (named barrier 2), then warp 0 factors it; beside
+//      them warps 4-7, and warps 1-3 once Quu is done, form Qxu (into
+//      R = [Qxuᵀ | Qu]) and Qxx;
+//   3. one thread per right-hand-side column solves it and forms its column
+//      of P = Quu·[K | k] + R, while the other warps stage the next knot's
+//      inputs (and, for nx > 60, form the Qxx tiles phase 2 left);
+//   4. all warps write K_t and k_t, and form T = Qxx + [K | k]ᵀP + Rᵀ[K | k],
+//      writing Vxx_ij = Vxx_ji = ½(T_ij + T_ji) and Vx = T's last column.
+// What the design does about latency:
+//   - the products are register-tiled: a thread owns a 4×4 tile (2×2 for
+//     Quu; in the update, two rows of a tile beside the matching two
+//     columns of its mirror) and reads each operand as one float4 (float2)
+//     per step of the sum: two shared loads per 16 FMA. Each is in
+//     outer-product form, both operands read along a row;
+//   - the factor keeps row i of S in lane i's registers and every diagonal
+//     in every lane (the same FMAs as the owning lane, so the same bits), so
+//     a pivot is one rsqrt, one store of the column, one __syncwarp and
+//     broadcast loads, with no shuffle and no branch between its loads;
+//   - the right-hand side's column stays in registers through both
+//     substitutions; the forward one goes a column of L at a time, so each
+//     of its steps is one IEEE division by L_kk (as the reference) and one
+//     FMA on the dependent chain; the gains are written in phase 4, by all
+//     warps, not by the solving threads;
+//   - the next knot's A, B, lxx, luu, lx, lu are staged into a second buffer
+//     by the warps the solve leaves idle, so no device-memory read sits in a
+//     dot loop or on the chain.
+// Each sum runs over its index in ascending order and keeps its products'
+// operands, as each phase's note says, so the bits do not depend on the
+// schedule: tools/port_riccati_designs.py holds a new schedule to an
+// earlier one's bits (max|new - old| = 0). A new sum order is a draw
+// against the float64 bars: a descending back substitution moved K's
+// reading from 1.397e-2 to 1.837e-2 (bar 3.122e-2). The factor and
+// solve are instantiated for nu = 19 (H1, every guard folds away) and once,
+// generically, for every other nu ≤ kMaxNu; everything else takes runtime
+// sizes.
 #include <cuda_runtime.h>
 
 namespace {
@@ -46,206 +73,514 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxNx = 64;
 constexpr int kMaxNu = 32;
+constexpr int kLs = kMaxNu;         // L's column stride
+constexpr int kQuuThreads = 128;    // warps 0-3 form Quu
+constexpr int kQTiles = 352;        // Qxu/Qxx tiles formed beside the factor
+constexpr int kStageRows = 16;      // rows a warp stages per round
+constexpr unsigned kFull = 0xffffffffu;
 
-struct Buffers {
-  float *Vxx, *A, *AtV, *Qxx, *T;  // nx·nx
-  float *B, *BtV, *Qxu;            // nx·nu
-  float *Quu, *S, *L;              // nu·nu
-  float *X, *QX;                   // nu·(nx+1): [K | k] and Quu·[K | k] + [0 | Qu]
-  float *Vx, *Qx, *Qu;
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// Sizes: rows of nx-wide matrices have stride SA = round4(nx + 1) (the
+// extra column holds Vx, Qu), rows of nu-wide ones stride SU = round4(nu);
+// the 4×4 tiles run to NXp = round4(nx), NUp = round4(nu). Padding is
+// zeroed once; no sum runs over a padded index, and padded outputs are
+// never read into a valid one.
+struct Dims {
+  int nx, nu, NXp, NUp, SA, SU;
 };
 
-__host__ __device__ inline size_t smem_floats(int nx, int nu) {
-  return 5 * (size_t)nx * nx + 3 * (size_t)nx * nu + 3 * (size_t)nu * nu +
-         2 * (size_t)nu * (nx + 1) + 2 * (size_t)nx + nu;
+__host__ __device__ inline Dims dims(int nx, int nu) {
+  return Dims{nx, nu, round4(nx), round4(nu), round4(nx + 1), round4(nu)};
 }
 
-__device__ inline Buffers carve(float* s, int nx, int nu) {
-  Buffers b;
-  b.Vxx = s; s += nx * nx;
-  b.A = s; s += nx * nx;
-  b.AtV = s; s += nx * nx;
-  b.Qxx = s; s += nx * nx;
-  b.T = s; s += nx * nx;
-  b.B = s; s += nx * nu;
-  b.BtV = s; s += nx * nu;
-  b.Qxu = s; s += nx * nu;
-  b.Quu = s; s += nu * nu;
-  b.S = s; s += nu * nu;
-  b.L = s; s += nu * nu;
-  b.X = s; s += nu * (nx + 1);
-  b.QX = s; s += nu * (nx + 1);
-  b.Vx = s; s += nx;
-  b.Qx = s; s += nx;
-  b.Qu = s;
-  return b;
+struct Smem {
+  float *VV;      // [Vxx | Vx]                       NXp × SA
+  float *A, *lxx; // two knots' buffers each          2 · NXp × SA
+  float *AtVT;    // (AᵀVxx)ᵀ                         NXp × SA
+  float *QQ;      // Qxx                              NXp × SA
+  float *R;       // [Qxuᵀ | Qu]                      NUp × SA
+  float *X;       // [K | k]                          NUp × SA
+  float *P;       // Quu·[K | k] + R                  NUp × SA
+  float *B;       // two buffers                      2 · NXp × SU
+  float *BtVT;    // (BᵀVxx)ᵀ                         NXp × SU
+  float *luu;     // two buffers                      2 · NUp × SU
+  float *Quu;     //                                  NUp × SU
+  float *L;       // column-major, L_ik at k·kLs + i  kMaxNu × kLs
+  float *lx, *Qx; // 2 · NXp, NXp
+  float *lu;      // 2 · NUp
+};
+
+__host__ __device__ inline size_t smem_floats(const Dims& d) {
+  return (size_t)d.SA * (7 * d.NXp + 3 * d.NUp) + (size_t)d.SU * (3 * d.NXp + 3 * d.NUp) +
+         kMaxNu * kLs + 3 * d.NXp + 2 * d.NUp;
 }
 
-// Cholesky of S (nu×nu, row-major; its lower triangle is overwritten) into
-// the lower triangle of L, by warp 0 with lane i on row i: right-looking,
-// one pivot at a time, as _chol_masked. Returns to every lane whether any
-// entry of the factor is not finite — the reference's test, one value for
-// the whole warp.
-__device__ bool chol_warp(float* S, float* L, int nu) {
-  const int i = threadIdx.x;
-  for (int k = 0; k < nu; ++k) {
-    const float inv = rsqrtf(S[k * nu + k]);  // S[k][k] was last written before the previous __syncwarp
-    if (i >= k && i < nu) L[i * nu + k] = S[i * nu + k] * inv;
-    __syncwarp();
-    if (i > k && i < nu) {
-      const float lik = L[i * nu + k];
-      for (int j = k + 1; j <= i; ++j) S[i * nu + j] -= lik * L[j * nu + k];
+__device__ inline Smem carve(float* s, const Dims& d) {
+  Smem m;
+  const int xa = d.NXp * d.SA, ua = d.NUp * d.SA, xu = d.NXp * d.SU, uu = d.NUp * d.SU;
+  m.VV = s; s += xa;
+  m.A = s; s += 2 * xa;
+  m.lxx = s; s += 2 * xa;
+  m.AtVT = s; s += xa;
+  m.QQ = s; s += xa;
+  m.R = s; s += ua;
+  m.X = s; s += ua;
+  m.P = s; s += ua;
+  m.B = s; s += 2 * xu;
+  m.BtVT = s; s += xu;
+  m.luu = s; s += 2 * uu;
+  m.Quu = s; s += uu;
+  m.L = s; s += kMaxNu * kLs;
+  m.lx = s; s += 2 * d.NXp;
+  m.Qx = s; s += d.NXp;
+  m.lu = s;
+  return m;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ void st4(float* p, float a, float b, float c, float e) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, e);
+}
+
+// Warps 0-3 meet here (named barrier 2): Quu is in shared memory.
+__device__ __forceinline__ void quu_sync() {
+  asm volatile("bar.sync 2, %0;\n" ::"r"(kQuuThreads) : "memory");
+}
+
+// Knot t's inputs (A_t, B_t, lxx_t, luu_t, lx_t, lu_t) into buffer t & 1 by
+// nw warps, the w-th of them first. Their rows form one list (3nx + nu + 2
+// rows of at most 64 floats, lanes along a row); a warp takes kStageRows
+// rows at a time and issues all their loads before its shared stores. (A
+// knot's slices are only 4-byte aligned, so 16-byte copies and TMA do not
+// apply.)
+__device__ __forceinline__ void stage_knot(const Smem& s, const Dims& d, int t, int w, int nw,
+                                           const float* __restrict__ A,
+                                           const float* __restrict__ B,
+                                           const float* __restrict__ lx,
+                                           const float* __restrict__ lu,
+                                           const float* __restrict__ lxx,
+                                           const float* __restrict__ luu) {
+  const int nx = d.nx, nu = d.nu, b = t & 1, lane = threadIdx.x & 31;
+  const int rows = 3 * nx + nu + 2;
+  for (int q0 = w * kStageRows; q0 < rows; q0 += nw * kStageRows) {
+    float v[kStageRows][2];
+    float* dst[kStageRows];
+    int cols[kStageRows];
+#pragma unroll
+    for (int m = 0; m < kStageRows; ++m) {
+      const int q = q0 + m;
+      const float* src = lu + (size_t)t * nu;
+      dst[m] = s.lu + b * d.NUp;
+      cols[m] = q == rows - 1 ? nu : 0;
+      if (q < nx) {
+        src = A + ((size_t)t * nx + q) * nx;
+        dst[m] = s.A + (b * d.NXp + q) * d.SA;
+        cols[m] = nx;
+      } else if (q < 2 * nx) {
+        src = B + ((size_t)t * nx + q - nx) * nu;
+        dst[m] = s.B + (b * d.NXp + q - nx) * d.SU;
+        cols[m] = nu;
+      } else if (q < 3 * nx) {
+        src = lxx + ((size_t)t * nx + q - 2 * nx) * nx;
+        dst[m] = s.lxx + (b * d.NXp + q - 2 * nx) * d.SA;
+        cols[m] = nx;
+      } else if (q < 3 * nx + nu) {
+        src = luu + ((size_t)t * nu + q - 3 * nx) * nu;
+        dst[m] = s.luu + (b * d.NUp + q - 3 * nx) * d.SU;
+        cols[m] = nu;
+      } else if (q == 3 * nx + nu) {
+        src = lx + (size_t)t * nx;
+        dst[m] = s.lx + b * d.NXp;
+        cols[m] = nx;
+      }
+      v[m][0] = lane < cols[m] ? src[lane] : 0.f;
+      v[m][1] = lane + 32 < cols[m] ? src[lane + 32] : 0.f;
     }
-    __syncwarp();
+#pragma unroll
+    for (int m = 0; m < kStageRows; ++m) {
+      if (lane < cols[m]) dst[m][lane] = v[m][0];
+      if (lane + 32 < cols[m]) dst[m][lane + 32] = v[m][1];
+    }
   }
-  bool bad = false;
-  if (i < nu)
-    for (int k = 0; k <= i; ++k) bad |= !isfinite(L[i * nu + k]);
-  return __any_sync(0xffffffffu, bad);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// acc[a][b] += Σ_{k < nk} u_k[a] · v_k[b], u_k the four floats at u + k·ldu
+// and v_k those at v + k·ldv (k ascending, one FMA per term).
+__device__ __forceinline__ void outer_sum(float (&acc)[4][4], const float* u, int ldu,
+                                          const float* v, int ldv, int nk) {
+#pragma unroll 4
+  for (int k = 0; k < nk; ++k) {
+    const float4 p = ld4(u + k * ldu), q = ld4(v + k * ldv);
+    const float ua[4] = {p.x, p.y, p.z, p.w}, vb[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(ua[a], vb[b], acc[a][b]);
+  }
+}
+
+// Phase 1, tile w (all threads): BᵀVV, then AᵀVV, VV = [Vxx | Vx], in 4×4
+// tiles. Writes BtVT, AtVT (transposed), Qu into R's last column and Qx.
+__device__ __forceinline__ int vv_tiles(const Dims& d) {
+  return (d.NUp / 4 + d.NXp / 4) * (d.SA / 4);
+}
+
+__device__ __forceinline__ void vv_tile(const Smem& s, const Dims& d, int w, const float* Ab,
+                                        const float* Bb, const float* lxb, const float* lub) {
+  const int G = d.SA / 4, RGu = d.NUp / 4;
+  const int rg = w / G, cg = w - rg * G;
+  const bool onB = rg < RGu;
+  const int r0 = 4 * (onB ? rg : rg - RGu), c0 = 4 * cg, ld = onB ? d.SU : d.SA;
+  float acc[4][4] = {};
+  outer_sum(acc, (onB ? Bb : Ab) + r0, ld, s.VV + c0, d.SA, d.nx);
+  float* T = (onB ? s.BtVT : s.AtVT) + r0;
+  const int rows = onB ? d.nu : d.nx;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const int j = c0 + b;
+    if (j < d.nx) {
+      st4(T + j * ld, acc[0][b], acc[1][b], acc[2][b], acc[3][b]);
+    } else if (j == d.nx) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int r = r0 + a;
+        if (r < rows) {
+          if (onB) s.R[r * d.SA + d.nx] = lub[r] + acc[a][b];
+          else s.Qx[r] = lxb[r] + acc[a][b];
+        }
+      }
+    }
+  }
+}
+
+// Phase 2a (warps 0-3): Quu = luu + (BᵀVxx)·B + λI in 2×2 tiles.
+__device__ __forceinline__ void phase_quu(const Smem& s, const Dims& d, const float* Bb,
+                                          const float* luub, float reg) {
+  const int QG = d.NUp / 2;
+  for (int tile = threadIdx.x; tile < QG * QG; tile += kQuuThreads) {
+    const int r0 = 2 * (tile / QG), c0 = 2 * (tile % QG);
+    float a00 = 0.f, a01 = 0.f, a10 = 0.f, a11 = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < d.nx; ++k) {
+      const float2 u = ld2(s.BtVT + k * d.SU + r0), v = ld2(Bb + k * d.SU + c0);
+      a00 = fmaf(u.x, v.x, a00);
+      a01 = fmaf(u.x, v.y, a01);
+      a10 = fmaf(u.y, v.x, a10);
+      a11 = fmaf(u.y, v.y, a11);
+    }
+    const float acc[2][2] = {{a00, a01}, {a10, a11}};
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int r = r0 + a, c = c0 + b;
+        if (r < d.nu && c < d.nu) {
+          float q = luub[r * d.SU + c] + acc[a][b];
+          if (r == c) q += reg;
+          s.Quu[r * d.SU + c] = q;
+        }
+      }
+  }
+}
+
+// Phase 2b, tile w: Qxu = (AᵀVxx)·B into R = Qxuᵀ (the first tiles, all of
+// them among the first 128), then Qxx = lxx + (AᵀVxx)·A, 4×4 each.
+__device__ __forceinline__ int q_tiles(const Dims& d) {
+  return (d.NXp / 4) * (d.NUp / 4 + d.NXp / 4);
+}
+
+__device__ __forceinline__ void q_tile(const Smem& s, const Dims& d, int w, const float* Ab,
+                                       const float* Bb, const float* lxxb) {
+  const int RGu = d.NUp / 4, RGx = d.NXp / 4, n_xu = RGx * RGu;
+  const bool xu = w < n_xu;
+  const int ig = xu ? w / RGu : (w - n_xu) / RGx;
+  const int cg = xu ? w - ig * RGu : (w - n_xu) - ig * RGx;
+  const int i0 = 4 * ig, c0 = 4 * cg;
+  float acc[4][4] = {};
+  outer_sum(acc, s.AtVT + i0, d.SA, (xu ? Bb : Ab) + c0, xu ? d.SU : d.SA, d.nx);
+  if (xu) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (i0 + a < d.nx && c0 + b < d.nu) s.R[(c0 + b) * d.SA + i0 + a] = acc[a][b];
+  } else {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const float4 l = ld4(lxxb + (i0 + a) * d.SA + c0);
+      st4(s.QQ + (i0 + a) * d.SA + c0, l.x + acc[a][0], l.y + acc[a][1], l.z + acc[a][2],
+          l.w + acc[a][3]);
+    }
+  }
+}
+
+// Cholesky of Quu (nu×nu) into L by warp 0, lane i on row i: right-looking,
+// one pivot at a time, as _chol_masked. Row i of S stays in lane i's
+// registers; every lane also carries all the diagonals S_jj, updated with
+// the same FMAs as their own lanes, so pivot k reads its diagonal locally.
+// L is stored column by column (L_ik at L[k·kLs + i]), so a pivot's column
+// is one store per lane without bank conflicts; its entries past nu stay 0,
+// so the update of a pivot runs over all kNu4 columns unguarded (no branch
+// between its loads). Returns to every lane whether any entry of the factor
+// is not finite — the reference's test, one value for the whole warp. With
+// kFixed, nu is kNu and every guard folds away.
+template <int kNu, bool kFixed>
+__device__ __forceinline__ bool factor(const float* Quu, float* L, int nu_rt, int SU) {
+  constexpr int kNu4 = round4(kNu);
+  const int i = threadIdx.x, nu = kFixed ? kNu : nu_rt;
+  float s[kNu4], dg[kNu4];
+#pragma unroll
+  for (int q = 0; q < kNu4; q += 4) {
+    float4 row = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q < nu && i < nu) row = ld4(Quu + i * SU + q);
+    s[q] = row.x, s[q + 1] = row.y, s[q + 2] = row.z, s[q + 3] = row.w;
+  }
+#pragma unroll
+  for (int j = 0; j < kNu4; ++j) dg[j] = j < nu ? Quu[j * SU + j] : 0.f;
+  bool bad = false;
+#pragma unroll
+  for (int k = 0; k < kNu; ++k) {
+    if (k < nu) {  // warp-uniform
+      const float l = s[k] * rsqrtf(dg[k]);
+      if (i >= k && i < nu) {
+        L[k * kLs + i] = l;
+        bad |= !isfinite(l);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int j = k + 1; j < kNu4; ++j) {
+        const float ljk = L[k * kLs + j];
+        s[j] = fmaf(-l, ljk, s[j]);
+        dg[j] = fmaf(-ljk, ljk, dg[j]);
+      }
+    }
+  }
+  return __any_sync(kFull, bad);
+}
+
+// Phase 3 (thread c ≤ nx): column c of X = −(L Lᵀ)⁻¹ R, the column in
+// registers, L read as broadcasts, each step ending in an IEEE division by
+// L_kk (as the reference). The forward substitution goes a column of L at
+// a time: once y_k is divided out, every later row takes its term at once,
+// so a step's dependent chain is one division and one FMA, and each row
+// still adds its terms in ascending order. The back substitution adds
+// x_{k+1} .. x_{nu-1} in ascending order. Then X and column c of
+// P = Quu·X + R, four rows at a time; k's column of P is Quu·k + Qu summed
+// from Qu, the others Quu·K summed from 0 plus Qxuᵀ. Entries of x past nu
+// stay 0 (the forward pass is guarded there), as do L's and Quu's, so the
+// sums over them add exact zeros.
+template <int kNu, bool kFixed>
+__device__ __forceinline__ void phase_solve(const Smem& s, const Dims& d) {
+  constexpr int kNu4 = round4(kNu);
+  const int c = threadIdx.x, SU = d.SU, SA = d.SA;
+  const int nu = kFixed ? kNu : d.nu, nu4 = kFixed ? kNu4 : round4(d.nu);
+  float x[kNu4];
+#pragma unroll
+  for (int k = 0; k < kNu4; ++k) x[k] = k < nu ? s.R[k * SA + c] : 0.f;
+#pragma unroll
+  for (int k = 0; k < kNu; ++k)
+    if (k < nu) {
+      x[k] = x[k] / s.L[k * kLs + k];
+#pragma unroll
+      for (int j = k + 1; j < kNu; ++j)
+        if (j < nu) x[j] = fmaf(-s.L[k * kLs + j], x[k], x[j]);
+    }
+#pragma unroll
+  for (int k = kNu - 1; k >= 0; --k)
+    if (k < nu) {
+      float v = x[k];
+#pragma unroll
+      for (int j = k + 1; j < kNu; ++j) v = fmaf(-s.L[k * kLs + j], x[j], v);
+      x[k] = v / s.L[k * kLs + k];
+    }
+#pragma unroll
+  for (int k = 0; k < kNu4; ++k) {
+    x[k] = -x[k];
+    if (k < nu) s.X[k * SA + c] = x[k];
+  }
+  const bool kcol = c == d.nx;  // k's column starts from Qu, as Quu·k + Qu
+  for (int r0 = 0; r0 < nu4; r0 += 4) {
+    float acc[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) acc[a] = kcol ? s.R[(r0 + a) * SA + c] : 0.f;
+#pragma unroll
+    for (int q = 0; q < kNu4; q += 4)
+      if (q < nu)
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float4 qr = ld4(s.Quu + (r0 + a) * SU + q);
+          acc[a] = fmaf(qr.x, x[q], acc[a]);
+          acc[a] = fmaf(qr.y, x[q + 1], acc[a]);
+          acc[a] = fmaf(qr.z, x[q + 2], acc[a]);
+          acc[a] = fmaf(qr.w, x[q + 3], acc[a]);
+        }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      s.P[(r0 + a) * SA + c] = kcol ? acc[a] : acc[a] + s.R[(r0 + a) * SA + c];
+  }
+}
+
+// K_t and k_t from X (all threads, coalesced).
+__device__ __forceinline__ void write_gains(const Smem& s, const Dims& d, int t,
+                                            float* __restrict__ K, float* __restrict__ kff) {
+  const int nx = d.nx, nu = d.nu;
+  for (int e = threadIdx.x; e < nu * (nx + 1); e += kThreads) {
+    const int r = e / (nx + 1), c = e - r * (nx + 1);
+    const float v = s.X[r * d.SA + c];
+    if (c < nx) K[((size_t)t * nu + r) * nx + c] = v;
+    else kff[(size_t)t * nu + r] = v;
+  }
+}
+
+// T_ij's starting value: Qxx_ij, or Qx_i in the Vx column.
+__device__ __forceinline__ float t0(const Smem& s, const Dims& d, int i, int j) {
+  if (i >= d.nx) return 0.f;
+  return j < d.nx ? s.QQ[i * d.SA + j] : (j == d.nx ? s.Qx[i] : 0.f);
+}
+
+// Phase 4 (all threads): T = Qxx + Xᵀ P + Rᵀ X over [Vxx | Vx], a term
+// T += X_ri·P_rj + R_ri·X_rj per r, in that form. A work item
+// is half of a pair of 4×4 tiles (I, J), I ≤ J: rows 4I+2h, 4I+2h+1 of tile
+// (I, J) beside columns 4I+2h, 4I+2h+1 of tile (J, I), so one thread holds
+// T_ij and T_ji and writes Vxx_ij = Vxx_ji = ½(T_ij + T_ji); the Vx column
+// (j = nx) is written as it stands.
+__device__ __forceinline__ void phase_update(const Smem& s, const Dims& d) {
+  const int RG = d.NXp / 4, G = d.SA / 4, SA = d.SA;
+  const int n_pairs = RG * G - RG * (RG - 1) / 2;
+  for (int w = threadIdx.x; w < 2 * n_pairs; w += kThreads) {
+    int p = w >> 1, I = 0;
+    while (p >= G - I) p -= G - I++;
+    const int J = I + p, i0 = 4 * I + 2 * (w & 1), j0 = 4 * J;
+    float t1[2][4], t2[4][2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        t1[a][b] = t0(s, d, i0 + a, j0 + b);
+        t2[b][a] = t0(s, d, j0 + b, i0 + a);
+      }
+#pragma unroll 4
+    for (int r = 0; r < d.nu; ++r) {
+      const float* Xr = s.X + r * SA;
+      const float* Pr = s.P + r * SA;
+      const float* Rr = s.R + r * SA;
+      const float2 xi2 = ld2(Xr + i0), pi2 = ld2(Pr + i0), ri2 = ld2(Rr + i0);
+      const float4 xj4 = ld4(Xr + j0), pj4 = ld4(Pr + j0), rj4 = ld4(Rr + j0);
+      const float xi[2] = {xi2.x, xi2.y}, pi[2] = {pi2.x, pi2.y}, ri[2] = {ri2.x, ri2.y};
+      const float xj[4] = {xj4.x, xj4.y, xj4.z, xj4.w}, pj[4] = {pj4.x, pj4.y, pj4.z, pj4.w},
+                  rj[4] = {rj4.x, rj4.y, rj4.z, rj4.w};
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          t1[a][b] += xi[a] * pj[b] + ri[a] * xj[b];
+          t2[b][a] += xj[b] * pi[a] + rj[b] * xi[a];
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int i = i0 + a, j = j0 + b;
+        if (i < d.nx && j < d.nx) {
+          const float v = 0.5f * (t1[a][b] + t2[b][a]);
+          s.VV[i * SA + j] = v;
+          if (I != J) s.VV[j * SA + i] = v;
+        } else if (i < d.nx && j == d.nx) {
+          s.VV[i * SA + j] = t1[a][b];
+        }
+      }
+  }
+}
+
+template <int kNu, bool kFixed>
+__global__ void __launch_bounds__(kThreads, 1)
 riccati_backward(const float* __restrict__ A, const float* __restrict__ B,
                  const float* __restrict__ lx, const float* __restrict__ lu,
                  const float* __restrict__ lxx, const float* __restrict__ luu,
                  const float* __restrict__ reg_ptr, float pd_bump, float* __restrict__ K,
                  float* __restrict__ kff, int N, int nx, int nu) {
-  extern __shared__ float smem[];
-  const Buffers b = carve(smem, nx, nu);
-  const int tid = threadIdx.x, nt = blockDim.x, ld = nx + 1;
-  const int nxx = nx * nx, nxu = nx * nu, nuu = nu * nu;
+  extern __shared__ __align__(16) float smem[];
+  const Dims d = dims(nx, nu);
+  const Smem s = carve(smem, d);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int xa = d.NXp * d.SA, xu = d.NXp * d.SU, uu = d.NUp * d.SU;
+  const int n_vv = vv_tiles(d), n_q = q_tiles(d);
+  const int w_stage = (nx + 32) / 32;  // the first warp with no column to solve
+  const int n_stage = kThreads / 32 - w_stage;
   const float reg = *reg_ptr;
 
-  auto stage = [&](int t) {  // A_t, B_t into shared memory, coalesced
-    const float* At = A + (size_t)t * nxx;
-    const float* Bt = B + (size_t)t * nxu;
-    for (int e = tid; e < nxx; e += nt) b.A[e] = At[e];
-    for (int e = tid; e < nxu; e += nt) b.B[e] = Bt[e];
-  };
-
-  for (int e = tid; e < nxx; e += nt) b.Vxx[e] = lxx[(size_t)N * nxx + e];
-  for (int e = tid; e < nx; e += nt) b.Vx[e] = lx[(size_t)N * nx + e];
-  stage(N - 1);
+  float4* z = reinterpret_cast<float4*>(smem);
+  for (size_t e = tid; e < smem_floats(d) / 4; e += kThreads) z[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  stage_knot(s, d, N - 1, warp, kThreads / 32, A, B, lx, lu, lxx, luu);
+  for (int e = tid; e < nx * nx; e += kThreads)
+    s.VV[(e / nx) * d.SA + e % nx] = lxx[(size_t)N * nx * nx + e];
+  for (int e = tid; e < nx; e += kThreads) s.VV[e * d.SA + nx] = lx[(size_t)N * nx + e];
   __syncthreads();
 
   for (int t = N - 1; t >= 0; --t) {
-    // 1. AtV = AᵀVxx, BtV = BᵀVxx, Qx = lx + AᵀVx, Qu = lu + BᵀVx
-    for (int e = tid; e < nxx + nxu + nx + nu; e += nt) {
-      float s = 0.f;
-      if (e < nxx) {
-        const int i = e / nx, j = e % nx;
-        for (int k = 0; k < nx; ++k) s += b.A[k * nx + i] * b.Vxx[k * nx + j];
-        b.AtV[e] = s;
-      } else if (e < nxx + nxu) {
-        const int f = e - nxx, r = f / nx, j = f % nx;
-        for (int k = 0; k < nx; ++k) s += b.B[k * nu + r] * b.Vxx[k * nx + j];
-        b.BtV[f] = s;
-      } else if (e < nxx + nxu + nx) {
-        const int i = e - nxx - nxu;
-        for (int k = 0; k < nx; ++k) s += b.A[k * nx + i] * b.Vx[k];
-        b.Qx[i] = lx[(size_t)t * nx + i] + s;
-      } else {
-        const int r = e - nxx - nxu - nx;
-        for (int k = 0; k < nx; ++k) s += b.B[k * nu + r] * b.Vx[k];
-        b.Qu[r] = lu[(size_t)t * nu + r] + s;
+    const int b = t & 1;
+    const float *Ab = s.A + b * xa, *Bb = s.B + b * xu, *lxxb = s.lxx + b * xa;
+
+    for (int w = tid; w < n_vv; w += kThreads)
+      vv_tile(s, d, w, Ab, Bb, s.lx + b * d.NXp, s.lu + b * d.NUp);
+    __syncthreads();
+
+    // Quu on warps 0-3, then its factor on warp 0. Beside them warps 4-7
+    // form Qxu/Qxx tiles 0-127 (every Qxu tile among them) and 224-351, and
+    // once Quu is done, warps 1-3 tiles 128-223.
+    if (tid < kQuuThreads) {
+      phase_quu(s, d, Bb, s.luu + b * uu, reg);
+      quu_sync();
+      if (tid < 32) {
+        if (factor<kNu, kFixed>(s.Quu, s.L, nu, d.SU)) {  // warp-uniform
+          if (tid < nu) s.Quu[tid * d.SU + tid] += pd_bump;
+          __syncwarp();
+          factor<kNu, kFixed>(s.Quu, s.L, nu, d.SU);
+        }
+      } else if (96 + tid < n_q) {
+        q_tile(s, d, 96 + tid, Ab, Bb, lxxb);
       }
+    } else {
+      for (int w = tid - kQuuThreads; w < min(n_q, kQTiles); w += 224)
+        q_tile(s, d, w, Ab, Bb, lxxb);
     }
     __syncthreads();
 
-    // 2. Qxx = lxx + AtV·A, Qxu = AtV·B, Quu = luu + BtV·B + λI
-    for (int e = tid; e < nxx + nxu + nuu; e += nt) {
-      float s = 0.f;
-      if (e < nxx) {
-        const int i = e / nx, j = e % nx;
-        for (int k = 0; k < nx; ++k) s += b.AtV[i * nx + k] * b.A[k * nx + j];
-        b.Qxx[e] = lxx[(size_t)t * nxx + e] + s;
-      } else if (e < nxx + nxu) {
-        const int f = e - nxx, i = f / nu, r = f % nu;
-        for (int k = 0; k < nx; ++k) s += b.AtV[i * nx + k] * b.B[k * nu + r];
-        b.Qxu[f] = s;
-      } else {
-        const int f = e - nxx - nxu, r = f / nu, c = f % nu;
-        for (int k = 0; k < nx; ++k) s += b.BtV[r * nx + k] * b.B[k * nu + c];
-        float q = luu[(size_t)t * nuu + f] + s;
-        if (r == c) q += reg;
-        b.Quu[f] = q;
-      }
+    // The solve on the first warps; beside it the others form the Qxx tiles
+    // left over and stage knot t - 1.
+    if (tid <= nx) {
+      phase_solve<kNu, kFixed>(s, d);
+    } else if (warp >= w_stage) {
+      for (int w = kQTiles + tid - 32 * w_stage; w < n_q; w += 32 * n_stage)
+        q_tile(s, d, w, Ab, Bb, lxxb);
+      if (t > 0) stage_knot(s, d, t - 1, warp - w_stage, n_stage, A, B, lx, lu, lxx, luu);
     }
     __syncthreads();
 
-    // 3. Factor Quu in warp 0; on a non-finite factor bump and factor again.
-    if (tid < 32) {
-      for (int e = tid; e < nuu; e += 32) b.S[e] = b.Quu[e];
-      __syncwarp();
-      if (chol_warp(b.S, b.L, nu)) {  // warp-uniform
-        if (tid < nu) b.Quu[tid * nu + tid] += pd_bump;
-        __syncwarp();
-        for (int e = tid; e < nuu; e += 32) b.S[e] = b.Quu[e];
-        __syncwarp();
-        chol_warp(b.S, b.L, nu);
-      }
-    }
-    __syncthreads();
-
-    // 4. Solve L Lᵀ X = −[Qxuᵀ | Qu], one thread per column; write K_t, k_t.
-    if (tid < ld) {
-      const int c = tid;
-      float* col = b.X + c;
-      for (int k = 0; k < nu; ++k) {
-        float s = c < nx ? b.Qxu[c * nu + k] : b.Qu[k];
-        for (int j = 0; j < k; ++j) s -= b.L[k * nu + j] * col[j * ld];
-        col[k * ld] = s / b.L[k * nu + k];
-      }
-      for (int k = nu - 1; k >= 0; --k) {
-        float s = col[k * ld];
-        for (int j = k + 1; j < nu; ++j) s -= b.L[j * nu + k] * col[j * ld];
-        col[k * ld] = s / b.L[k * nu + k];
-      }
-      for (int r = 0; r < nu; ++r) {
-        const float v = -col[r * ld];
-        col[r * ld] = v;
-        if (c < nx) K[((size_t)t * nu + r) * nx + c] = v;
-        else kff[(size_t)t * nu + r] = v;
-      }
-    }
-    __syncthreads();
-
-    // 5. QX = Quu·[K | k] + [0 | Qu]
-    for (int e = tid; e < nu * ld; e += nt) {
-      const int r = e / ld, j = e % ld;
-      float s = j == nx ? b.Qu[r] : 0.f;
-      for (int k = 0; k < nu; ++k) s += b.Quu[r * nu + k] * b.X[k * ld + j];
-      b.QX[e] = s;
-    }
-    __syncthreads();
-
-    // 6. Vx = Qx + Kᵀ(Quu k + Qu) + Qxu k; T = Qxx + KᵀQuuK + KᵀQxuᵀ + QxuK
-    for (int e = tid; e < nxx + nx; e += nt) {
-      if (e < nxx) {
-        const int i = e / nx, j = e % nx;
-        float s = b.Qxx[e];
-        for (int r = 0; r < nu; ++r)
-          s += b.X[r * ld + i] * (b.QX[r * ld + j] + b.Qxu[j * nu + r]) +
-               b.Qxu[i * nu + r] * b.X[r * ld + j];
-        b.T[e] = s;
-      } else {
-        const int i = e - nxx;
-        float s = b.Qx[i];
-        for (int r = 0; r < nu; ++r)
-          s += b.X[r * ld + i] * b.QX[r * ld + nx] + b.Qxu[i * nu + r] * b.X[r * ld + nx];
-        b.Vx[i] = s;
-      }
-    }
-    __syncthreads();
-
-    // 7. Vxx = (T + Tᵀ)/2, and stage the next step's A, B.
-    for (int e = tid; e < nxx; e += nt) {
-      const int i = e / nx, j = e % nx;
-      b.Vxx[e] = 0.5f * (b.T[e] + b.T[j * nx + i]);
-    }
-    if (t > 0) stage(t - 1);
+    write_gains(s, d, t, K, kff);
+    phase_update(s, d);
     __syncthreads();
   }
+}
+
+template <int kNu, bool kFixed>
+int launch(const float* A, const float* B, const float* lx, const float* lu, const float* lxx,
+           const float* luu, const float* reg, float pd_bump, float* K, float* kff, int N,
+           int nx, int nu, cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * smem_floats(dims(nx, nu));
+  // Above 48 KB a block's shared memory must be opted into (227 KB max).
+  if (bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(riccati_backward<kNu, kFixed>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  riccati_backward<kNu, kFixed><<<1, kThreads, bytes, stream>>>(A, B, lx, lu, lxx, luu, reg,
+                                                                pd_bump, K, kff, N, nx, nu);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -253,7 +588,7 @@ riccati_backward(const float* __restrict__ A, const float* __restrict__ B,
 extern "C" {
 
 long long mpc_riccati_smem_bytes(int nx, int nu) {
-  return (long long)(sizeof(float) * smem_floats(nx, nu));
+  return (long long)(sizeof(float) * smem_floats(dims(nx, nu)));
 }
 
 // K (N, nu, nx), kff (N, nu) from A (N, nx, nx), B (N, nx, nu), lx (N+1, nx),
@@ -263,16 +598,10 @@ int mpc_riccati_backward(const float* A, const float* B, const float* lx, const 
                          const float* lxx, const float* luu, const float* reg, float pd_bump,
                          float* K, float* kff, int N, int nx, int nu, void* stream) {
   if (N < 1 || nx < 1 || nu < 1 || nx > kMaxNx || nu > kMaxNu) return (int)cudaErrorInvalidValue;
-  const size_t bytes = sizeof(float) * smem_floats(nx, nu);
-  // Above 48 KB a block's shared memory must be opted into (227 KB max).
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(riccati_backward,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  riccati_backward<<<1, kThreads, bytes, (cudaStream_t)stream>>>(A, B, lx, lu, lxx, luu, reg,
-                                                                 pd_bump, K, kff, N, nx, nu);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (nu == 19)  // H1
+    return launch<19, true>(A, B, lx, lu, lxx, luu, reg, pd_bump, K, kff, N, nx, nu, st);
+  return launch<kMaxNu, false>(A, B, lx, lu, lxx, luu, reg, pd_bump, K, kff, N, nx, nu, st);
 }
 
 }  // extern "C"

@@ -267,11 +267,22 @@ def _riccati_inputs(N, nx, nu, case="plain"):
 
 @pytest.mark.parametrize("N,nx,nu,reg,case", [(10, 51, 19, 1e-6, "plain"),
                                                (4, 13, 5, 1e-5, "plain"),
-                                               (10, 51, 19, RICCATI_REG, "rescued")])
+                                               (10, 51, 19, RICCATI_REG, "rescued"),
+                                               (10, 51, 19, RICCATI_REG, "indefinite"),
+                                               (3, 64, 32, 1e-6, "plain"),
+                                               (3, 33, 7, 1e-6, "plain"),
+                                               (1, 51, 19, 1e-6, "plain"),
+                                               (10, 33, 7, RICCATI_REG, "rescued"),
+                                               (10, 64, 32, RICCATI_REG, "indefinite")])
 def test_riccati_kernel_matches_plain_and_counts_its_launch(card, N, nx, nu, reg, case):
     """K4 against its plain version at the JAX package's Riccati bar
-    (rtol 2e-3, atol 2e-4, tests/test_ops.py:36-37); "rescued" puts an exact
-    zero pivot at one step, where the PD bump must fire in the kernel too."""
+    (rtol 2e-3, atol 2e-4, tests/test_ops.py:36-37), non-finite exactly where
+    the plain version is; "rescued" puts an exact zero pivot at one step,
+    where the PD bump must fire in the kernel too; "indefinite" a Quu the bump
+    cannot cure, so every step from there down is NaN. (3, 64, 32) is the
+    kernel's largest size, (3, 33, 7) a ragged one and N=1 the shortest
+    pass; the last two take the bump and its NaNs through the instantiation
+    for every nu but H1's."""
     from mpc_ilqr_tpu_torch.ops import riccati
 
     args = _riccati_inputs(N, nx, nu, case)
@@ -281,11 +292,38 @@ def test_riccati_kernel_matches_plain_and_counts_its_launch(card, N, nx, nu, reg
     assert riccati.LAUNCHES["riccati"] == before + 1
     K_p, k_p = riccati.backward_pass_plain(*args, reg, 1e-4)
     assert K.shape == (N, nu, nx) and k.shape == (N, nu) and K.is_cuda
-    assert bool(torch.isfinite(K).all()) and bool(torch.isfinite(k).all())
-    np.testing.assert_allclose(K.cpu().numpy(), K_p.cpu().numpy(), rtol=2e-3, atol=2e-4)
-    np.testing.assert_allclose(k.cpu().numpy(), k_p.cpu().numpy(), rtol=2e-3, atol=2e-4)
+    for got, want in ((K, K_p), (k, k_p)):
+        fin = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(got), fin)
+        assert bool(fin.all()) == (case != "indefinite")
+        np.testing.assert_allclose(got[fin].cpu().numpy(), want[fin].cpu().numpy(), rtol=2e-3,
+                                   atol=2e-4)
     if case == "rescued":  # without the bump k there would be NaN; with it, -lu / pd_bump
         assert abs(float(k[RICCATI_T_BAD, 3]) + float(args[3][RICCATI_T_BAD, 3]) / 1e-4) < 1.0
+    if case == "indefinite":  # the steps from the indefinite one down, and only they
+        bad = (~torch.isfinite(k)).any(1).cpu()
+        assert bad.tolist() == [t <= RICCATI_T_BAD for t in range(N)]
+
+
+def test_riccati_kernel_matches_float64_on_the_long_horizon_inputs(card):
+    """K4 on the long-horizon path's own inputs (N=100, chip_smoke's
+    long_horizon_inputs) against the plain version in float64, K and kff
+    each no further than atol + 2 |plain32 - plain64| (chip_smoke phase 5's
+    bar): a 100-step recursion with |K| up to ~1e3 sits at float32's floor,
+    so plain float32 itself is the yardstick."""
+    from chip_smoke import RICCATI_ATOL, long_horizon_inputs
+    from mpc_ilqr_tpu_torch.ops import riccati
+
+    li = long_horizon_inputs()
+    args, cfg = li["args"], li["prob"].cfg
+    reg = torch.tensor(cfg.reg_init, device="cuda")
+    got = riccati.backward_pass_kernel(*args, reg, cfg.pd_bump)
+    p32 = riccati.backward_pass_plain(*args, reg, cfg.pd_bump)
+    p64 = riccati.backward_pass_plain(*[a.double() for a in args], cfg.reg_init, cfg.pd_bump)
+    for g, w32, w64 in zip(got, p32, p64):
+        assert bool(torch.isfinite(g).all())
+        bar = RICCATI_ATOL + 2.0 * float((w32.double() - w64).abs().max())
+        assert float((g.double() - w64).abs().max()) <= bar
 
 
 def test_riccati_wrapper_raises_on_what_the_kernel_does_not_take(card):

@@ -34,7 +34,9 @@ def _assert_same(got, want, rtol, atol):
 @pytest.mark.parametrize("N,nx,nu,case", [
     (10, 51, 19, "plain"), (4, 13, 5, "plain"),  # test_ops.py:28-49's two shapes
     (10, 51, 19, "rescued"), (10, 51, 19, "indefinite"),
-])
+    (3, 64, 32, "plain"), (3, 33, 7, "plain"), (1, 51, 19, "plain"),  # the CUDA kernel's
+    (10, 33, 7, "rescued"), (10, 64, 32, "indefinite"),  # largest size, a ragged one, N=1,
+])                                                       # and the bump at sizes other than H1's
 def test_plain_matches_the_pallas_kernel(N, nx, nu, case):
     arrs = random_problem(N, nx, nu, case)
     K_j, k_j = backward_pass_pallas(*map(jnp.asarray, arrs), jnp.float32(REG), 1e-4,
@@ -109,3 +111,4 @@ def test_wrapper_raises_on_what_it_does_not_take():
     with pytest.raises(ValueError):  # N = 0
         riccati.backward_pass_kernel(arrs[0][:0], arrs[1][:0], arrs[2][:1], arrs[3][:0],
                                      arrs[4][:1], arrs[5][:0], REG, 1e-4)
+

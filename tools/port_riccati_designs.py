@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""Time the CUDA Riccati kernel of mpc_ilqr_tpu_torch (K4 riccati_backward)
+against an earlier design of it, on one GPU.
+
+    git archive <commit> mpc_ilqr_tpu_torch | tar -x -C logs/parent
+    python3 tools/port_riccati_designs.py logs/parent/mpc_ilqr_tpu_torch
+
+The earlier design is the csrc/ of that copy of the package. The inputs are
+made once and saved: chip_smoke.py's long-horizon inputs (N=100, and their
+last 25 knots for N=25) and its phase-5 reference cases (riccati_problem).
+The two designs then run in turns (old, new, new, old, each its own
+process; tools/design_turns.py) through the same C interface. Prints each
+design's shared memory for H1, each turn's ms per launch (CUDA events over
+--reps launches), max|new - old| for K and kff, each design's distance from
+the plain version in float64 beside plain float32's, each design's
+max|kernel - plain| on the reference cases with their non-finite steps, and
+nvidia-smi's name and power limit.
+"""
+import os
+
+import numpy as np
+
+import design_turns as dt
+
+WORK = os.path.join(dt.ROOT, "logs", "riccati_compare")
+INPUTS = os.path.join(WORK, "inputs.npz")
+NAMES = ("A", "B", "lx", "lu", "lxx", "luu")
+
+
+def _cases():
+    """{label: (six input arrays, λ, timed)}: the long-horizon inputs at
+    N=100 and N=25, then chip_smoke phase 5's reference cases."""
+    import chip_smoke as cs
+
+    z = np.load(INPUTS)
+    lh = [z[n] for n in NAMES]
+    cases = {f"long horizon N={n}": ([a[100 - n:] for a in lh], float(z["reg"]), True)
+             for n in (100, 25)}
+    for N, nx, nu, case, reg in cs.RICCATI_CASES:
+        cases[f"({N}, {nx}, {nu}) {case}"] = (cs.riccati_problem(N, nx, nu, case), reg, False)
+    return cases, float(z["pd"])
+
+
+def turn(args):
+    """Every case through one design; outputs and times saved to args.out."""
+    import torch
+    from chip_smoke import event_ms
+
+    lib = dt.library(args, WORK)
+    print(f"{args.turn} design, shared memory (H1): {lib.mpc_riccati_smem_bytes(51, 19)} bytes")
+    cases, pd = _cases()
+    stream = torch.cuda.current_stream().cuda_stream
+    saved = {}
+    for label, (arrays, reg, timed) in cases.items():
+        a = [torch.as_tensor(x, dtype=torch.float32, device="cuda").contiguous() for x in arrays]
+        N, nx, nu = a[0].shape[0], a[0].shape[1], a[1].shape[2]
+        reg_d = torch.tensor([reg], dtype=torch.float32, device="cuda")
+        K, kff = torch.empty((N, nu, nx), device="cuda"), torch.empty((N, nu), device="cuda")
+
+        def call():
+            rc = lib.mpc_riccati_backward(*(t.data_ptr() for t in a), reg_d.data_ptr(), pd,
+                                          K.data_ptr(), kff.data_ptr(), N, nx, nu, stream)
+            assert rc == 0, lib.mpc_error_string(rc)
+
+        call()
+        torch.cuda.synchronize()
+        saved[f"{label}/K"], saved[f"{label}/kff"] = K.cpu().numpy(), kff.cpu().numpy()
+        if timed:
+            saved[f"ms/{label}"] = event_ms(call, args.reps)
+    np.savez(args.out, **saved)
+
+
+def _max(d):
+    return float(d.max()) if d.size else 0.0
+
+
+def compare(args):
+    import torch
+    import chip_smoke as cs
+    from mpc_ilqr_tpu_torch.ops import riccati
+
+    os.makedirs(WORK, exist_ok=True)
+    li = cs.long_horizon_inputs()
+    np.savez(INPUTS, **{n: t.cpu().numpy() for n, t in zip(NAMES, li["args"])},
+             reg=li["prob"].cfg.reg_init, pd=li["prob"].cfg.pd_bump)
+    runs = dt.run_turns(__file__, args, WORK)
+    old, new = runs[0], runs[1]
+    print(f"old: {args.old}; new: the package's csrc")
+    cases, pd = _cases()
+    for label, (arrays, reg, timed) in cases.items():
+        a = [torch.as_tensor(x, device="cuda") for x in arrays]
+        p32 = riccati.backward_pass_plain(*[t.float() for t in a], reg, pd)
+        p64 = riccati.backward_pass_plain(*[t.double() for t in a], reg, pd)
+        print(f"{label}: {dt.times(runs, label)}" if timed else f"{label}:")
+        for j, out in enumerate(("K", "kff")):
+            o_, n_ = old[f"{label}/{out}"], new[f"{label}/{out}"]
+            w32, w64 = p32[j].cpu().numpy(), p64[j].cpu().numpy()
+            fin = np.isfinite(w64)
+            line = (f"  {out}: max|new-old| {_max(np.abs(n_ - o_)[fin]):.3e}; non-finite steps "
+                    f"old {int((~np.isfinite(o_)).reshape(len(o_), -1).any(1).sum())}, new "
+                    f"{int((~np.isfinite(n_)).reshape(len(n_), -1).any(1).sum())}, plain "
+                    f"{int((~fin).reshape(len(fin), -1).any(1).sum())}")
+            if timed:
+                line += (f"; from float64: old {_max(np.abs(o_ - w64)):.3e}, new "
+                         f"{_max(np.abs(n_ - w64)):.3e}, plain32 {_max(np.abs(w32 - w64)):.3e}")
+            else:
+                f32 = np.isfinite(w32)
+                line += (f"; max|kernel-plain32|: old {_max(np.abs(o_ - w32)[f32]):.3e}, new "
+                         f"{_max(np.abs(n_ - w32)[f32]):.3e}")
+            print(line)
+
+
+if __name__ == "__main__":
+    dt.main(__doc__, "an earlier copy of the package (its csrc/)", turn, compare)

@@ -6,26 +6,23 @@ K2/K3 rollout_feedback) against an earlier design of them, on one GPU.
     python3 tools/port_rollout_designs.py logs/parent/mpc_ilqr_tpu_torch
 
 The earlier design is the csrc/ of that copy of the package, with the
-ops/step_plan.py that packs its model. It is built under logs/ (which git
-ignores) with the package's nvcc flags. The two designs then run in turns
-(old, new, new, old), each turn a process of its own so that the two
-libraries never share one: CUDA events over 50 launches of K1, K2 at A=1
-and K3 at A=7, on chip_smoke.py's kernel inputs, at N=25 on the flagship's
-model and at N=100 on the long-horizon model. Prints each turn's ms per
+ops/step_plan.py that packs its model. The two designs run in turns (old,
+new, new, old, each its own process; tools/design_turns.py): CUDA events
+over 50 launches of K1, K2 at A=1 and K3 at A=7, on chip_smoke.py's kernel
+inputs, at N=25 on the flagship's model and at N=100 on the long-horizon
+model. Prints each turn's ms per
 launch, whether the two designs' outputs are equal bit for bit, and
 nvidia-smi's name and power limit.
 """
-import argparse
 import importlib.util
 import os
-import subprocess
 import sys
 
 import numpy as np
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-WORK = os.path.join(ROOT, "logs", "rollout_compare")
+import design_turns as dt
+
+WORK = os.path.join(dt.ROOT, "logs", "rollout_compare")
 
 
 def _plan_module(path: str):
@@ -34,20 +31,6 @@ def _plan_module(path: str):
     sys.modules[spec.name] = mod  # its dataclass looks its module up there
     spec.loader.exec_module(mod)
     return mod
-
-
-def _event_ms(fn, reps):
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    torch.cuda.synchronize()
-    return s.elapsed_time(e) / reps
 
 
 def _cases(lib, plan, model, inp):
@@ -83,15 +66,13 @@ def _cases(lib, plan, model, inp):
 
 def turn(args):
     """Every case of one design; outputs and times saved to args.out."""
-    from chip_smoke import kernel_inputs, standing_problem
+    from chip_smoke import event_ms, kernel_inputs, standing_problem
     from mpc_ilqr_tpu_torch import scenarios
-    from mpc_ilqr_tpu_torch.ops import _build, step_plan
+    from mpc_ilqr_tpu_torch.ops import step_plan
 
-    if args.turn == "old":
-        lib = _build.bind(_build.build(os.path.join(args.old, "csrc"), os.path.join(WORK, "old")))
-        plan_mod = _plan_module(os.path.join(args.old, "ops", "step_plan.py"))
-    else:
-        lib, plan_mod = _build.library(), step_plan
+    lib = dt.library(args, WORK)
+    plan_mod = (_plan_module(os.path.join(args.old, "ops", "step_plan.py"))
+                if args.turn == "old" else step_plan)
     flag, (lh, _) = standing_problem(), scenarios.long_horizon(tuned=True)
     saved = {}
     for label, prob in (("N=25 flagship", flag), ("N=100 long horizon", lh)):
@@ -101,43 +82,19 @@ def turn(args):
             key = f"{label} {name}"
             for j, t in enumerate(call()):
                 saved[f"{key}/{j}"] = t.cpu().numpy()
-            saved[f"ms/{key}"] = _event_ms(call, args.reps)
+            saved[f"ms/{key}"] = event_ms(call, args.reps)
     np.savez(args.out, **saved)
 
 
 def compare(args):
-    os.makedirs(WORK, exist_ok=True)
-    runs = []
-    for i, who in enumerate(("old", "new", "new", "old")):
-        path = os.path.join(WORK, f"turn{i}_{who}.npz")
-        subprocess.run([sys.executable, os.path.abspath(__file__), args.old, "--turn", who,
-                         "--out", path, "--reps", str(args.reps)], check=True)
-        runs.append(np.load(path))
+    runs = dt.run_turns(__file__, args, WORK)
     print(f"old: {args.old}; new: the package's csrc")
     for key in (k[3:] for k in runs[0].files if k.startswith("ms/")):
-        t = [float(r[f"ms/{key}"]) for r in runs]
-        o, n = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
         same = all(np.array_equal(runs[0][k], runs[1][k])
                    for k in runs[0].files if k.startswith(key + "/"))
-        print(f"{key}: old {t[0]:.4f} / {t[3]:.4f} ms, new {t[1]:.4f} / {t[2]:.4f} ms per launch "
-              f"(old/new {o / n:.2f}x); outputs bit for bit equal: {same}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True)
-    print(smi.stdout.strip())
-
-
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("old", help="an earlier copy of the package (its csrc/ and ops/step_plan.py)")
-    ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--turn", choices=("old", "new"), help=argparse.SUPPRESS)
-    ap.add_argument("--out", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.turn:
-        turn(args)
-    else:
-        compare(args)
+        print(f"{key}: {dt.times(runs, key)}; outputs bit for bit equal: {same}")
 
 
 if __name__ == "__main__":
-    main()
+    dt.main(__doc__, "an earlier copy of the package (its csrc/ and ops/step_plan.py)", turn,
+            compare)
