@@ -36,6 +36,17 @@ Phases, each printing its wall seconds:
               once per backward pass and K1/K2 launched, (b) also to its last
               cost below its first; then timed once more, and one solver
               iteration at N=100 broken down
+  7. walking  config.yaml as shipped (the walking references, N=25, the
+              shipped solver) through the system's entry point,
+              runner.run_simulation, for the config's 100 sim steps, with the
+              native step log and the trajectory logs under
+              logs/chip_smoke_walking/ and a Profiler; held to finite states,
+              base z in (1.0, 1.1), the native writer, no dropped row, the log's
+              lines and header, K1/K2 launched, and solve_ok and the
+              failed-solve abort no worse than the JAX package's own walking run
+              (WALK_ANCHOR); then the CLI once, `python -m
+              mpc_ilqr_tpu_torch.run_mpc --standing --steps 3 --quiet
+              --profile`, which must run on cuda
 Each path is driven with every launch count set to 0 just before it and read
 just after. Then one `kernels` JSON line and, last, the `ok` JSON line. Any
 failed check exits non-zero before the result lines. Imports only the port,
@@ -56,6 +67,13 @@ FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 ANCHORS = "TPU-era quality anchors (information only): final cost 0.4000-0.4001, base_z 1.042690"
 LH_ANCHORS = ("TPU-era long-horizon anchors (information only): final cost 2.3070-2.3072, "
               "base_z 1.0430")
+# The JAX package's own walking run (config.yaml as shipped, float32, on the CPU;
+# tools/walking_anchor.py --package jax): 53 of its 54 solves ok, the first failure
+# at step 53, where run_simulation's abort (a failed solve past step 15) ends it.
+# Phase 7 holds the port to no more failed solves and no earlier abort.
+WALK_ANCHOR = dict(steps_run=54, failed=(53,), final_cost=71560.2656, base_z=1.04132819,
+                   mean_err=(0.00191798, 0.00081349, 0.00283948),
+                   max_err=(0.00358117, 0.00184174, 0.00335884))
 RICCATI_RTOL, RICCATI_ATOL = 2e-3, 2e-4  # tests/test_ops.py:36-37
 RICCATI_REG = 2.0 ** -20  # ~1e-6, exact in float32 (the bump case needs an exact zero pivot)
 RICCATI_T_BAD = 6  # the step where riccati_problem's bump cases put their pivot
@@ -260,6 +278,39 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def recording_waits(module, oks: list):
+    """A stand-in for module.block_until_ready, the wait on step_once's
+    output inside either package's run_simulation, that appends each step's
+    solve_ok to oks (run_simulation's history, as the reference's, has no
+    solve_ok)."""
+    inner = module.block_until_ready
+
+    def wait(out):
+        out = inner(out)
+        if isinstance(out, tuple) and len(out) == 3 and hasattr(out[2], "solve_ok"):
+            oks.append(bool(out[2].solve_ok))
+        return out
+    return wait
+
+
+def walking_quality(log_path: str) -> dict:
+    """From a step log (either package's StepLogger): its header, rows, the
+    final cost and base z, base z's range, and base X/Y/Z's mean and max
+    |x - x_ref| against the reference row logged beside each state."""
+    import numpy as np
+
+    with open(log_path) as f:
+        header = f.readline().rstrip("\n")
+    d = np.atleast_2d(np.loadtxt(log_path, delimiter=",", skiprows=1))
+    cols = header.split(",")
+    ix, ir = cols.index("x_0"), cols.index("x_ref_0")
+    err = np.abs(d[:, ix:ix + 3] - d[:, ir:ir + 3])
+    return dict(header=header, rows=len(d), final_cost=float(d[-1, 2]),
+                base_z=float(d[-1, ix + 2]), z_min=float(d[:, ix + 2].min()),
+                z_max=float(d[:, ix + 2].max()), mean_err=tuple(map(float, err.mean(0))),
+                max_err=tuple(map(float, err.max(0))))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -274,7 +325,8 @@ def main() -> int:
     if smi.returncode:
         fail(f"nvidia-smi failed: {smi.stderr}")
     print(f"device: {kind} (count {count}), torch {torch.__version__}, CUDA {torch.version.cuda}")
-    print(smi.stdout.strip().splitlines()[0])
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(smi_line)
     phase("device", t0)
 
     sys.path.insert(0, ROOT)
@@ -649,6 +701,97 @@ def main() -> int:
             lm, lh.plan, lx0, lxb, lub, Kf, kf, al[1:]),
     }, f"N={lcfg.N}")
     phase("long horizon", t0)
+
+    # ---- 7. walking through the system's entry point ----------------------------
+    t0 = time.perf_counter()
+    from mpc_ilqr_tpu_torch.io import logging as iolog
+    from mpc_ilqr_tpu_torch.io import native
+    from mpc_ilqr_tpu_torch.io.config import load_config
+    from mpc_ilqr_tpu_torch.mpc import runner
+    from mpc_ilqr_tpu_torch.utils.profiling import Profiler
+
+    app = load_config(os.path.join(ROOT, "config.yaml"))  # nothing swapped: walking
+    wprob = runner.setup(app)
+    wm, steps = wprob.model, app.mpc.sim_steps
+    print(f"walking: {app.q_ref_path}, {app.v_ref_path}, {app.contact_schedule_path}; "
+          f"{wprob.refs.length} reference rows, N={wprob.cfg.N}, {steps} sim steps, "
+          f"device {wm.device}, {wm.dtype}")
+    if wprob.plan is None or wm.device.type != "cuda":
+        fail("walking: setup did not place the problem and its kernel plan on the card")
+    log_dir = os.path.join(ROOT, "logs", "chip_smoke_walking")
+    step_logger = iolog.StepLogger(os.path.join(log_dir, "mpc_log.csv"), wm.nx, wm.nu)
+    traj_logger = iolog.OptimalTrajectoryLogger(os.path.join(log_dir, "results"), wm.nq, wm.nu)
+    if not step_logger.native:
+        fail(f"walking: the native log writer is not in use ({native.build_error})")
+    prof, oks = Profiler(), []
+    reset_counts()
+    wait, runner.block_until_ready = runner.block_until_ready, recording_waits(runner, oks)
+    try:
+        t1 = time.perf_counter()
+        whist, _ = runner.run_simulation(wprob, verbose=False, profiler=prof,
+                                         step_logger=step_logger, traj_logger=traj_logger)
+        run_s = time.perf_counter() - t1
+    finally:
+        runner.block_until_ready = wait
+    counts = read_counts()
+    n_run = len(whist["cost"])
+    failed = [i for i, ok in enumerate(oks) if not ok]
+    aborted = any(i > 15 for i in failed)
+    q = walking_quality(os.path.join(log_dir, "mpc_log.csv"))
+    wx = np.stack(whist["x"])
+    ms_step = run_s * 1e3 / n_run
+    for i in range(n_run):
+        print(f"walking step {i:3d}: cost {whist['cost'][i]:.4f}  iterations "
+              f"{whist['iterations'][i]}  solve_ok {oks[i]}  base xyz ({wx[i, 0]:.6f}, "
+              f"{wx[i, 1]:.6f}, {wx[i, 2]:.6f})  solve {whist['solve_ms'][i]:.2f} ms")
+    print(f"walking ({smi_line}): {n_run} of {steps} steps run, solve_ok {n_run - len(failed)} "
+          f"of {n_run} (failed at {failed}; abort {aborted}); final cost {q['final_cost']:.4f}, "
+          f"final base z {q['base_z']:.6f}, base z in [{q['z_min']:.6f}, {q['z_max']:.6f}]")
+    print(f"walking tracking |x - x_ref| ({smi_line}): base X/Y/Z mean "
+          f"{q['mean_err'][0]:.6f}/{q['mean_err'][1]:.6f}/{q['mean_err'][2]:.6f}, max "
+          f"{q['max_err'][0]:.6f}/{q['max_err'][1]:.6f}/{q['max_err'][2]:.6f}")
+    print(f"walking ({smi_line}): {ms_step:.2f} ms per MPC step (host clock, warm, {n_run} steps, "
+          f"run_simulation with logs and plant); steady solve "
+          f"{sum(whist['solve_ms'][1:]) / max(1, n_run - 1):.2f} ms; launches {counts}")
+    print(f"JAX package's walking run, CPU float32 (information; the gate's anchor): "
+          f"{WALK_ANCHOR['steps_run']} steps run, failed at {list(WALK_ANCHOR['failed'])}, final "
+          f"cost {WALK_ANCHOR['final_cost']}, base z {WALK_ANCHOR['base_z']}, tracking mean "
+          f"{WALK_ANCHOR['mean_err']}, max {WALK_ANCHOR['max_err']}")
+    print(prof.report())
+    if not (np.isfinite(wx).all() and all(np.isfinite(u).all() for u in whist["u"])):
+        fail("walking: non-finite state or control")
+    if n_run < steps and not aborted:
+        fail(f"walking: stopped after {n_run} of {steps} steps without a solve-failure abort "
+             f"(a non-finite state)")
+    if len(failed) > len(WALK_ANCHOR["failed"]) or (
+            aborted and n_run < WALK_ANCHOR["steps_run"]):
+        fail(f"walking: solves failed at {failed} (abort after {n_run} steps); the JAX package's "
+             f"run failed at {list(WALK_ANCHOR['failed'])} and ran {WALK_ANCHOR['steps_run']}")
+    if not (1.0 < wx[:, 2].min() and wx[:, 2].max() < 1.1):
+        fail(f"walking: base_z left (1.0, 1.1): min {wx[:, 2].min()}, max {wx[:, 2].max()}")
+    if step_logger.dropped != 0:
+        fail(f"walking: the log writer dropped {step_logger.dropped} rows")
+    with open(os.path.join(log_dir, "mpc_log.csv")) as f:
+        n_lines = sum(1 for _ in f)
+    if n_lines != 1 + n_run or q["header"] != step_logger.header:
+        fail(f"walking: step log has {n_lines} lines for {n_run} steps, or another header")
+    for name in ("rollout", "linesearch"):
+        if counts[name] < 1:
+            fail(f"walking: {tpu_id[name]} was not launched")
+    for name in report:
+        report[name]["launches_by_path"]["walking"] = counts[name]
+
+    t1 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "mpc_ilqr_tpu_torch.run_mpc", "--standing",
+                          "--steps", "3", "--quiet", "--profile"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    print(f"CLI `python -m mpc_ilqr_tpu_torch.run_mpc --standing --steps 3 --quiet --profile`: "
+          f"exit {cli.returncode} in {time.perf_counter() - t1:.1f} s")
+    for line in cli.stdout.splitlines():
+        print(f"  | {line}")
+    if cli.returncode != 0 or "device: cuda" not in cli.stdout:
+        fail(f"the CLI did not run on cuda (exit {cli.returncode}):\n{cli.stderr[-4000:]}")
+    phase("walking", t0)
 
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

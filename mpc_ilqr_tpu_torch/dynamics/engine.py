@@ -7,6 +7,7 @@
 - `step`          x_{t+1} = f(x_t, u_t) with implicit joint damping
 - `step_and_jac`  (x_next, A, B) grouped by input block
 - `gravity_comp`  actuator torques cancelling the bias at a state
+- `contact_forces` the diagnostic f_el − C·(J v) at the contact points
 
 One forward-kinematics pass per step feeds M, the bias and the contact
 geometry. Every function takes one state and composes with
@@ -218,6 +219,17 @@ def contact_terms(model: RobotModel, fr: KinFrames, v: torch.Tensor, h):
     return Jp, f_el, contact_cdiag(model, _flat(Jp), fn_el, active, v, h), pw
 
 
+def contact_forces(model: RobotModel, x: torch.Tensor):
+    """Diagnostic contact forces at state x: (forces (ncp,3), points (ncp,3)).
+
+    Effective force f = f_el − C·(J v), what the integrator applies to first
+    order (the contact-schedule generator's quantity)."""
+    q, v = model.split_state(normalize_state(model, x))
+    fr = forward_kinematics(model, q)
+    Jp, f_el, c_diag, pw = contact_terms(model, fr, v, model.timestep)
+    return f_el - c_diag * torch.matmul(Jp, v), pw
+
+
 def _actuation_matrix(model: RobotModel, like: torch.Tensor) -> torch.Tensor:
     """S = ∂tau/∂u (nv, nu): the constant actuator scatter."""
     S = torch.zeros((model.nv, model.nu), dtype=like.dtype, device=like.device)
@@ -248,6 +260,15 @@ def integrate_position(model: RobotModel, q: torch.Tensor, v_next: torch.Tensor,
             pieces += [q[at:a], q[a : a + 1] + h * v_next[d : d + 1]]
             at = a + 1
     return torch.cat(pieces + [q[at:]])
+
+
+def _cholesky(lhs: torch.Tensor) -> torch.Tensor:
+    """Cholesky factor of lhs, all NaN where the factorization fails, as
+    JAX's `cho_factor` gives it: a diverged line-search candidate then
+    carries NaN to its cost and is rejected, instead of raising. No host
+    sync (`torch.linalg.cholesky` checks its info on the host)."""
+    L, info = torch.linalg.cholesky_ex(lhs)
+    return torch.where((info == 0)[..., None, None], L, torch.full_like(L, float("nan")))
 
 
 def _cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -281,7 +302,7 @@ def step(model: RobotModel, x: torch.Tensor, u: torch.Tensor, n_substeps: int = 
             lhs = lhs + h * torch.matmul(Jp_f.T, Jp_f * c_diag.reshape(-1)[:, None])
             tau = tau + torch.matmul(Jp_f.T, f_el.reshape(-1))
         rhs = torch.matmul(M, v) + h * (tau - bias)
-        v_next = _cho_solve(torch.linalg.cholesky(lhs), rhs)
+        v_next = _cho_solve(_cholesky(lhs), rhs)
         x = torch.cat([integrate_position(model, q, v_next, h), v_next])
     return x
 
@@ -320,7 +341,7 @@ def step_and_jac(model: RobotModel, x: torch.Tensor, u: torch.Tensor,
             lhs = lhs + h * torch.matmul(Jp_f.T, Jp_f * c_diag.reshape(-1)[:, None])
             tau = tau + torch.matmul(Jp_f.T, f_el.reshape(-1))
         rhs = torch.matmul(M, v) + h * (tau - bias)
-        L = torch.linalg.cholesky(lhs)
+        L = _cholesky(lhs)
         v_next = _cho_solve(L, rhs)
         x_next = torch.cat([integrate_position(model, q, v_next, h), v_next])
 

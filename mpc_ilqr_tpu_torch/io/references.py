@@ -1,10 +1,10 @@
 """Reference CSV loading and the precomputed task tracks.
 
-Reads headerless q/v CSVs (or their .npz/.npy twins) with numpy, then
-computes the CoM / CoM-velocity / EE-position / EE-velocity tracks for every
-row with one batched FK. Contact schedules are CSVs with a
-`left_foot,right_foot` header of 0/1 rows; rows past the schedule default to
-stance.
+Reads headerless q/v CSVs through the native parser (io/native.py; numpy
+without it) or their .npz/.npy twins, then computes the CoM / CoM-velocity
+/ EE-position / EE-velocity tracks for every row with one batched FK.
+Contact schedules are CSVs with a `left_foot,right_foot` header of 0/1
+rows; rows past the schedule default to stance.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from torch.func import vmap
 
 from mpc_ilqr_tpu_torch.costs.references import ReferenceSet
 from mpc_ilqr_tpu_torch.dynamics import kinematics as kin
+from mpc_ilqr_tpu_torch.io import native
 from mpc_ilqr_tpu_torch.models.robot import RobotModel
 
 
@@ -26,7 +27,7 @@ def load_csv_matrix(path: str, skip_rows: int = 0) -> np.ndarray:
             return np.atleast_2d(np.asarray(z[list(z.files)[0]], dtype=np.float64))
     if path.endswith(".npy"):
         return np.atleast_2d(np.load(path).astype(np.float64))
-    return np.atleast_2d(np.loadtxt(path, delimiter=",", skiprows=skip_rows, dtype=np.float64))
+    return np.atleast_2d(native.read_csv_matrix(path, skip_rows=skip_rows))
 
 
 def load_contact_schedule(path: str, n_ee: int = 2) -> np.ndarray:

@@ -334,6 +334,25 @@ def load_h1(xml_path: str = H1_SCENE_XML, gravity=None, timestep: Optional[float
     )
 
 
+def scale_robot_mass(model: RobotModel, factor: float) -> RobotModel:
+    """Fault-injection knob: scale every body mass and inertia by factor
+    (RobotUtils::scaleRobotMass, robot_utils.cpp:835-842, which scales the
+    masses only; the inertias scale with them here for physical
+    consistency). A pure update: the model passed in is unchanged. The
+    rollout kernels read a packed StepPlan, so a scaled model needs its
+    plan rebuilt (`ops.step_plan.build_step_plan`) before a kernel sees it;
+    `mpc.runner.run_simulation` steps a `sim_model` with the plain plant step."""
+    return model.replace(body_mass=model.body_mass * factor,
+                         body_inertia=model.body_inertia * factor)
+
+
+def set_gravity(model: RobotModel, gx: float, gy: float, gz: float) -> RobotModel:
+    """RobotUtils::setGravity (robot_utils.cpp:782-789) as a pure update; as
+    with `scale_robot_mass`, a StepPlan packed before it is stale."""
+    return model.replace(gravity=torch.tensor([gx, gy, gz], dtype=model.gravity.dtype,
+                                              device=model.gravity.device))
+
+
 def standing_state(model: RobotModel, height: float = 1.0432) -> torch.Tensor:
     """Standing initial state: zeros except base z and qw."""
     x = torch.zeros(model.nx, dtype=model.dtype, device=model.device)

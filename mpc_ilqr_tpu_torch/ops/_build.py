@@ -44,8 +44,9 @@ def _sources(csrc):
             [os.path.join(csrc, n) for n in names if n.endswith((".cu", ".cuh"))])
 
 
-def _digest(files) -> str:
-    h = hashlib.sha256(" ".join(ARCH + CFLAGS).encode())
+def digest(files, flags=tuple(ARCH + CFLAGS)) -> str:
+    """Hash of the flags and the sources' names and bytes: a build's directory."""
+    h = hashlib.sha256(" ".join(flags).encode())
     for f in files:
         h.update(os.path.basename(f).encode())
         with open(f, "rb") as fh:
@@ -57,7 +58,7 @@ def build(csrc: str = CSRC, root: str = BUILD_ROOT) -> str:
     """Compile csrc/*.cu (unless this exact build exists under root) and
     return the path of the shared library."""
     cu, files = _sources(csrc)
-    out_dir = os.path.join(root, _digest(files))
+    out_dir = os.path.join(root, digest(files))
     lib_path = os.path.join(out_dir, "libmpc_kernels.so")
     if os.path.isfile(lib_path):
         build_log.update(seconds=0.0, path=lib_path)

@@ -110,6 +110,9 @@ import chip_smoke
 import mpc_ilqr_tpu_torch, mpc_ilqr_tpu_torch.interop, mpc_ilqr_tpu_torch.ops.step_plan
 import mpc_ilqr_tpu_torch.ops.rollout_kernel, mpc_ilqr_tpu_torch.ops._build
 import mpc_ilqr_tpu_torch.ops.riccati, mpc_ilqr_tpu_torch.scenarios
+import mpc_ilqr_tpu_torch.io.native, mpc_ilqr_tpu_torch.io.logging
+import mpc_ilqr_tpu_torch.utils.profiling, mpc_ilqr_tpu_torch.mpc.checkpoint
+import mpc_ilqr_tpu_torch.run_mpc
 from mpc_ilqr_tpu_torch.io.config import load_config
 from mpc_ilqr_tpu_torch.mpc import runner, controller
 from mpc_ilqr_tpu_torch.models.robot import standing_state
@@ -138,10 +141,11 @@ print("POISONED_OK", prob.cfg.N, diag.iterations, float(diag.cost), lh.cfg.N)
 
 def test_port_runs_with_reference_stack_poisoned():
     """Rehearse the card's run without the card: with jax, flax, yaml,
-    mujoco and mpc_ilqr_tpu unimportable, import chip_smoke and the port,
-    then set up the flagship from config.yaml and take one MPC step on CPU,
-    and one long-horizon step with backward="pallas" (K4's plain version) at
-    N=6."""
+    mujoco and mpc_ilqr_tpu unimportable, import chip_smoke and the port
+    with its runtime modules (native I/O, logging, profiling, checkpoints,
+    the CLI), then set up the flagship from config.yaml and take one MPC
+    step on CPU, and one long-horizon step with backward="pallas" (K4's
+    plain version) at N=6."""
     code = POISONED_RUN.format(FORBIDDEN=set(FORBIDDEN), ROOT=ROOT,
                                config=os.path.join(ROOT, "config.yaml"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -362,3 +362,71 @@ def test_long_horizon_step_runs_through_k4(card):
     assert 1.0 < float(xT[2]) < 1.1
     assert riccati.LAUNCHES["riccati"] == hist["iterations"][0] >= 1
     assert rk.LAUNCHES["rollout"] >= 1 and rk.LAUNCHES["linesearch"] >= 1
+
+
+def test_run_simulation_walks_on_the_card_with_the_native_logger(card, tmp_path):
+    """The entry point on the card: three sim steps of config.yaml as
+    shipped (walking), through the native step log and the trajectory logs:
+    every row written and none dropped, the reference's headers, finite
+    states near standing, and the solver's rollouts through K1 and K2."""
+    from chip_smoke import walking_quality
+    from mpc_ilqr_tpu_torch.io import logging as iolog
+    from mpc_ilqr_tpu_torch.io.config import load_config
+    from mpc_ilqr_tpu_torch.mpc import runner
+    from mpc_ilqr_tpu_torch.ops import rollout_kernel as rk
+    from mpc_ilqr_tpu_torch.utils.profiling import Profiler
+
+    prob = runner.setup(load_config(os.path.join(ROOT, "config.yaml")))
+    m = prob.model
+    assert m.device.type == "cuda" and prob.refs.length == 400
+    step_logger = iolog.StepLogger(str(tmp_path / "mpc_log.csv"), m.nx, m.nu)
+    traj_logger = iolog.OptimalTrajectoryLogger(str(tmp_path / "results"), m.nq, m.nu)
+    assert step_logger.native
+    prof = Profiler()
+    rk.reset_launch_counts()
+    hist, state = runner.run_simulation(prob, sim_steps=3, verbose=False, profiler=prof,
+                                        step_logger=step_logger, traj_logger=traj_logger)
+    assert len(hist["cost"]) == 3 and state.t_idx == 3
+    assert step_logger.dropped == 0 and len(prof.times["MPC_stepOnce"]) == 3
+    q = walking_quality(str(tmp_path / "mpc_log.csv"))
+    assert q["rows"] == 3 and q["header"] == step_logger.header
+    assert 1.0 < q["z_min"] and q["z_max"] < 1.1
+    assert all(np.isfinite(x).all() for x in hist["x"])
+    for name in ("q_optimal.csv", "u_optimal.csv"):
+        assert len((tmp_path / "results" / name).read_text().splitlines()) == 4
+    assert rk.LAUNCHES["rollout"] >= 1 and rk.LAUNCHES["linesearch"] >= 1
+
+
+def test_load_state_defaults_to_the_card(card, tmp_path):
+    from mpc_ilqr_tpu_torch.mpc import checkpoint, controller
+    from mpc_ilqr_tpu_torch.ilqr.solver import ILQRConfig
+
+    m, _ = card
+    state = controller.init_state(m, ILQRConfig(N=5, linearization="structured_frozen_mass",
+                                                quad_mode="gn"))
+    checkpoint.save_state(str(tmp_path / "s.npz"), state.replace(t_idx=4, has_prev=True))
+    back = checkpoint.load_state(str(tmp_path / "s.npz"))
+    assert back.prev_K.device.type == back.reg.device.type == "cuda"
+    assert (back.t_idx, back.has_prev) == (4, True)
+    assert torch.equal(back.prev_xbar, state.prev_xbar)
+
+
+def test_profiler_stage_waits_for_a_cuda_output(card):
+    """A stage whose output is still being computed on the card ends only
+    when the card is done: an event recorded after the work has completed
+    when the stage returns."""
+    from mpc_ilqr_tpu_torch.utils.profiling import Profiler
+
+    a = torch.randn(4096, 4096, device="cuda")
+    torch.cuda.synchronize()
+    prof, out = Profiler(), []
+    done = torch.cuda.Event()
+    with prof.stage("matmuls", block_on=out):
+        y = a
+        for _ in range(20):
+            y = y @ a / 64.0
+        out.append({"y": (y,)})
+        done.record()
+    assert done.query()
+    assert len(prof.times["matmuls"]) == 1
+    assert "Card peak allocated" in prof.report()
