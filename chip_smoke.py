@@ -47,6 +47,20 @@ Phases, each printing its wall seconds:
               (WALK_ANCHOR); then the CLI once, `python -m
               mpc_ilqr_tpu_torch.run_mpc --standing --steps 3 --quiet
               --profile`, which must run on cuda
+  8. batched  (a) scenarios.batched_linesearch: 8 seeds x 16 alphas, N=25,
+              float32, one batched device-side solve (solve_batched), timed
+              as solves per second over 3 calls after a warm-up; held to
+              finite costs and each seed's cost and ubar against the same
+              device-side solve run on that seed alone (SEED_COST_RTOL,
+              SEED_UBAR_ATOL). (b) scenarios.fleet: 1024 randomised H1s in
+              chunks of 128: one chunk through fleet_step_once (the warm-up),
+              then the cold-start and the warm-start fleet steps, both timed;
+              held to finite controls for every instance; then one chunk
+              through fleet_step_once under
+              torch.cuda.set_sync_debug_mode("error"); each single chunk
+              equal to the chunked step's first chunk; the peak memory and
+              the time of each part of a chunk. Both paths take no kernel:
+              their launch counts must read 0
 Each path is driven with every launch count set to 0 just before it and read
 just after. Then one `kernels` JSON line and, last, the `ok` JSON line. Any
 failed check exits non-zero before the result lines. Imports only the port,
@@ -87,6 +101,9 @@ RICCATI_CASES = ((10, 51, 19, "plain", 1e-6), (4, 13, 5, "plain", 1e-5),
 FIRST_K4 = {(10, 51, 19, "plain"): 2.384e-06, (4, 13, 5, "plain"): 3.576e-07,
             (10, 51, 19, "rescued"): 1.907e-06, (10, 51, 19, "indefinite"): 9.537e-07,
             "K": 1.397e-2, "kff": 1.223e-3}
+# Phase 8's bars on the batched seed solve against the same device-side solve run on
+# one seed at a time (float32: batched and single products round differently).
+SEED_COST_RTOL, SEED_UBAR_ATOL = 1e-4, 3e-3
 
 
 def fail(msg: str) -> None:
@@ -249,19 +266,35 @@ def bound(n_bytes, n_flops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def breakdown(parts, tag):
-    """Host-clock ms per call of each part, 5 calls after one warm-up."""
+def breakdown(parts, tag, reps=5):
+    """Host-clock ms per call of each part, `reps` calls after one warm-up."""
     import torch
 
+    out = {}
     for label, fn in parts.items():
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(5):
+        for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-        print(f"  breakdown ({tag}): {label}: {(time.perf_counter() - t0) * 1e3 / 5:.3f} ms "
-              f"(host clock)")
+        out[label] = (time.perf_counter() - t0) * 1e3 / reps
+        print(f"  breakdown ({tag}): {label}: {out[label]:.3f} ms (host clock)")
+    return out
+
+
+def host_seconds(fn, reps):
+    """Mean host-clock seconds of `reps` calls of fn, each ending in synchronize()."""
+    import torch
+
+    secs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return sum(secs) / reps, out
 
 
 def event_ms(fn, reps):
@@ -309,6 +342,167 @@ def walking_quality(log_path: str) -> dict:
                 base_z=float(d[-1, ix + 2]), z_min=float(d[:, ix + 2].min()),
                 z_max=float(d[:, ix + 2].max()), mean_err=tuple(map(float, err.mean(0))),
                 max_err=tuple(map(float, err.max(0))))
+
+
+def batched_phase(report, smi_line, reset_counts, read_counts):
+    """Phase 8: scenarios.batched_linesearch and scenarios.fleet on the card,
+    each held to its gates, timed, and its kernel launches recorded in
+    `report` (all four read 0: the batched path takes the plain chains)."""
+    import torch
+    from torch.func import vmap
+
+    from mpc_ilqr_tpu_torch import scenarios
+    from mpc_ilqr_tpu_torch.costs.quadratics import quadraticize_gn
+    from mpc_ilqr_tpu_torch.costs.references import extract_window
+    from mpc_ilqr_tpu_torch.ilqr import solver
+    from mpc_ilqr_tpu_torch.models.robot import ARRAY_FIELDS
+    from mpc_ilqr_tpu_torch.mpc import controller
+    from mpc_ilqr_tpu_torch.parallel import fleet as fleet_mod
+
+    def zero_launches(label, counts):
+        print(f"{label}: kernel launches {counts}")
+        if any(counts.values()):
+            fail(f"{label}: the batched path launched a kernel ({counts}); it takes the plain chains")
+        for name in report:
+            report[name]["launches_by_path"][label] = counts[name]
+
+    # (a) scenarios.batched_linesearch: one batched solve over the seeds
+    ss = scenarios.batched_linesearch()
+    sp, n_seeds = ss.prob, ss.seeds.shape[0]
+    solve_seeds = lambda: solver.solve_batched(sp.model, sp.cp, sp.cfg, ss.x0, ss.window, ss.seeds)
+    reset_counts()
+    t1 = time.perf_counter()
+    sol = solve_seeds()
+    counts = read_counts()
+    first_s = time.perf_counter() - t1
+    zero_launches("batched_linesearch", counts)
+    mean_s, _ = host_seconds(solve_seeds, 3)
+    print(f"batched_linesearch ({smi_line}): {n_seeds} seeds x {len(sp.cfg.alphas)} alphas, "
+          f"N={sp.cfg.N}, max_iterations {sp.cfg.max_iterations}, {sp.model.dtype}: "
+          f"{n_seeds / mean_s:.4f} solves/s ({mean_s * 1e3:.2f} ms per batched solve, host clock, "
+          f"mean of 3 calls after one warm-up of {first_s:.2f} s)")
+    print(f"  mean cost {float(sol.cost.mean()):.6f}; per seed: cost "
+          f"{[round(c, 6) for c in sol.cost.tolist()]}, iterations {sol.iterations.tolist()}, "
+          f"success {sol.success.tolist()}, attempts needed {sol.attempts.tolist()} of "
+          f"{2 * sp.cfg.max_iterations} run")
+    if not bool(torch.isfinite(sol.cost).all()):
+        fail(f"batched_linesearch: non-finite cost {sol.cost.tolist()}")
+    one_cfg = solver.batched_config(sp.cfg)
+    worst = dict(cost=0.0, ubar=0.0)
+    t1 = time.perf_counter()
+    for s in range(n_seeds):
+        one = solver.device_solve(sp.model, sp.cp, one_cfg, ss.x0, ss.window, ss.seeds[s])
+        d_cost = abs(float(one.cost) - float(sol.cost[s])) / max(1.0, abs(float(one.cost)))
+        d_u = float((one.ubar - sol.ubar[s]).abs().max())
+        worst = dict(cost=max(worst["cost"], d_cost), ubar=max(worst["ubar"], d_u))
+        print(f"  seed {s} alone: cost {float(one.cost):.6f} (relative gap {d_cost:.3e}), "
+              f"max|ubar gap| {d_u:.3e}, iterations {int(one.iterations)}, "
+              f"success {bool(one.success)}")
+    torch.cuda.synchronize()
+    print(f"  batched vs one at a time ({(time.perf_counter() - t1) * 1e3 / n_seeds:.2f} ms per "
+          f"single-seed solve, host clock, with the gap readings): relative cost gap "
+          f"{worst['cost']:.3e} (bar {SEED_COST_RTOL}), max|ubar gap| {worst['ubar']:.3e} (bar "
+          f"{SEED_UBAR_ATOL})")
+    if not (worst["cost"] <= SEED_COST_RTOL and worst["ubar"] <= SEED_UBAR_ATOL):
+        fail(f"batched_linesearch: the batched solve parts from one seed at a time ({worst})")
+
+    # (b) scenarios.fleet: 1024 randomised H1s in chunks of 128. The warm-up is one chunk
+    # (fleet_step_once), then the cold-start fleet step and the warm-start one, both timed.
+    fl = scenarios.fleet()
+    fp, chunk, n = fl.prob, fl.chunk, fl.xs.shape[0]
+    dev = fp.model.device
+    part = lambda t: t[:chunk]
+    m0 = fl.models.replace(**{f: part(getattr(fl.models, f)) for f in ARRAY_FIELDS})
+    x0s = part(fl.xs)
+    once = lambda states: fleet_mod.fleet_step_once(m0, fp.cp, fp.cfg, fp.refs, controller.MPCState(
+        **{f: part(getattr(states, f)) for f in fleet_mod.STATE_FIELDS}), x0s)
+    step = lambda states: fleet_mod.fleet_step_chunked(fl.models, fp.cp, fp.cfg, fp.refs, states,
+                                                       fl.xs, chunk)
+    reset_counts()
+    t1 = time.perf_counter()
+    warm = once(fl.states)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t1
+    torch.cuda.reset_peak_memory_stats()
+    runs = [(fl.states,)]
+    step_s, _ = host_seconds(lambda: runs.append(step(runs[-1][0])), 2)
+    counts = read_counts()
+    peak_step = torch.cuda.max_memory_allocated()
+    zero_launches("fleet", counts)
+    runs = runs[1:]
+    cfgb = solver.batched_config(fp.cfg)
+    attempts_run = cfgb.max_iterations * (1 if cfgb.inner_attempts == 1 else 2)
+    print(f"fleet ({smi_line}): {n} instances in chunks of {chunk}, N={fp.cfg.N}, "
+          f"{fp.model.dtype}: {step_s * 1e3:.1f} ms per fleet step, {n / step_s:.2f} instance "
+          f"steps/s (host clock, mean of the cold-start and the warm-start step after a "
+          f"one-chunk warm-up of {warmup_s:.2f} s); peak memory {peak_step / 2**20:.1f} MiB over "
+          f"both steps")
+    for label, (st, u, d) in zip(("cold start", "warm start"), runs):
+        if not bool(torch.isfinite(u).all()):
+            fail(f"fleet {label}: non-finite controls for {int((~torch.isfinite(u)).any(1).sum())} "
+                 f"instances")
+        print(f"  {label}: solve_ok {int(d.solve_ok.sum())} of {n}, cost mean "
+              f"{float(d.cost.mean()):.6f} max {float(d.cost.max()):.6f}, iterations "
+              f"{torch.bincount(d.iterations).tolist()} (count per value), attempts needed "
+              f"{int(d.attempts.sum())} of {attempts_run * n} run, has_prev "
+              f"{int(st.has_prev.sum())}, t_idx {torch.bincount(st.t_idx).tolist()}")
+
+    def gap_to_chunked(got, run):
+        want = [getattr(run[0], f) for f in fleet_mod.STATE_FIELDS] + [run[1]] + list(run[2])
+        got = [getattr(got[0], f) for f in fleet_mod.STATE_FIELDS] + [got[1]] + list(got[2])
+        return max(float((g.double() - part(w).double()).abs().max()) for g, w in zip(got, want))
+
+    # One chunk through fleet_step_once under sync-debug "error", on the warm step's inputs.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        one = once(runs[0][0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t1
+    peak_chunk = torch.cuda.max_memory_allocated()
+    gap = max(gap_to_chunked(warm, runs[0]), gap_to_chunked(one, runs[1]))
+    print(f"  one chunk of {chunk} by fleet_step_once under sync debug mode 'error': no host sync; "
+          f"{chunk_s * 1e3:.1f} ms; peak memory {peak_chunk / 2**20:.1f} MiB; max|once - chunked| "
+          f"{gap:.3e} (the cold and the warm step's first chunk)")
+    if gap != 0.0:
+        fail(f"fleet: fleet_step_chunked's first chunk differs from fleet_step_once ({gap:.3e})")
+
+    # Where a chunk's time goes: each part vmapped over the chunk, at the warm start's shapes.
+    arrays = tuple(getattr(m0, f) for f in ARRAY_FIELDS)
+    at = lambda a: m0.replace(**dict(zip(ARRAY_FIELDS, a)))
+    win = extract_window(fp.refs, 1, fp.cfg.N)
+    xb, ub, Kb = one[0].prev_xbar, one[0].prev_ubar, one[0].prev_K
+    reg_t = torch.full((), fp.cfg.reg_init, device=dev)
+    Ab, Bb = vmap(lambda a, x, u: solver.linearize(at(a), cfgb, x, u))(arrays, xb, ub)
+    qb = vmap(lambda a, x, u: quadraticize_gn(at(a), fp.cp, win, x, u))(arrays, xb, ub)
+    fl_alphas = torch.tensor(cfgb.alphas, device=dev)
+    parts = breakdown({
+        "linearize": lambda: vmap(lambda a, x, u: solver.linearize(at(a), cfgb, x, u))(
+            arrays, xb, ub),
+        "quadraticize_gn": lambda: vmap(lambda a, x, u: quadraticize_gn(at(a), fp.cp, win, x, u))(
+            arrays, xb, ub),
+        "trajectory_cost": lambda: vmap(lambda a, x, u: solver.trajectory_cost(at(a), fp.cp, win,
+                                                                               x, u))(arrays, xb, ub),
+        "rollout (open loop, masked)": lambda: vmap(
+            lambda a, x, u: solver.rollout(at(a), cfgb, x, u))(arrays, x0s, ub),
+        "line search (4 alphas, masked, with costs)": lambda: vmap(
+            lambda a, x, xb_, ub_, K_: solver.rollout_alphas(at(a), fp.cp, cfgb, win, x, xb_, ub_,
+                                                             K_, ub_ * 0.0, fl_alphas, "xla"))(
+            arrays, x0s, xb, ub, Kb),
+        "backward_pass": lambda: vmap(lambda A, B, q: solver.backward_pass(A, B, q, reg_t,
+                                                                           cfgb.pd_bump))(Ab, Bb, qb),
+    }, f"fleet chunk of {chunk}, N={fp.cfg.N}", reps=1)
+    trips, att = cfgb.max_iterations, attempts_run
+    est = (trips * (parts["linearize"] + parts["quadraticize_gn"])
+           + (1 + trips) * parts["trajectory_cost"] + 2 * parts["rollout (open loop, masked)"]
+           + att * (parts["backward_pass"] + parts["line search (4 alphas, masked, with costs)"]))
+    print(f"  per chunk: {trips} x (linearize + quadraticize_gn), {1 + trips} x trajectory_cost, "
+          f"2 x rollout, {att} x (backward_pass + line search) = {est:.1f} ms of the "
+          f"{step_s * 1e3 / (n // chunk):.1f} ms a chunk takes in the fleet step")
 
 
 def main() -> int:
@@ -792,6 +986,11 @@ def main() -> int:
     if cli.returncode != 0 or "device: cuda" not in cli.stdout:
         fail(f"the CLI did not run on cuda (exit {cli.returncode}):\n{cli.stderr[-4000:]}")
     phase("walking", t0)
+
+    # ---- 8. batched: the 16-alpha x 8-seed search and the 1024-instance fleet ----
+    t0 = time.perf_counter()
+    batched_phase(report, smi_line, reset_counts, read_counts)
+    phase("batched", t0)
 
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -38,10 +38,16 @@ class ReferenceWindow:
     stance: torch.Tensor  # (N+1, n_ee)
 
 
-def extract_window(refs: ReferenceSet, t0: int, N: int) -> ReferenceWindow:
-    """Rows t0..t0+N, indices past the track repeating its last row."""
-    idx = torch.clamp(torch.arange(N + 1, device=refs.x.device) + int(t0), 0, refs.length - 1)
+def extract_window(refs: ReferenceSet, t0, N: int) -> ReferenceWindow:
+    """Rows t0..t0+N, indices past the track repeating its last row.
+
+    t0 is an int, a 0-dim integer tensor or a vector of them (B,); a vector
+    gives every field a leading axis B. A tensor t0 is gathered on its
+    device with no host read (the reference's clamped gather)."""
+    steps = torch.arange(N + 1, device=refs.x.device)
+    idx = steps + (t0[..., None] if torch.is_tensor(t0) else int(t0))
+    idx = torch.clamp(idx, 0, refs.length - 1)
     return ReferenceWindow(
-        x=refs.x[idx], u=refs.u[idx[:N]], com=refs.com[idx], com_vel=refs.com_vel[idx],
+        x=refs.x[idx], u=refs.u[idx[..., :N]], com=refs.com[idx], com_vel=refs.com_vel[idx],
         ee_pos=refs.ee_pos[idx], stance=refs.stance[idx],
     )

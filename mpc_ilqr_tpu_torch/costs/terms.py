@@ -19,7 +19,7 @@ import torch
 from mpc_ilqr_tpu_torch.costs.params import CostParams
 from mpc_ilqr_tpu_torch.dynamics import kinematics as kin
 from mpc_ilqr_tpu_torch.dynamics import math as qm
-from mpc_ilqr_tpu_torch.models.robot import RobotModel
+from mpc_ilqr_tpu_torch.models.robot import RobotModel, static_tensor
 
 
 def _quat_log(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -88,7 +88,7 @@ def joint_limit_cost(model: RobotModel, cp: CostParams, x):
     """Soft joint-range penalty with 10% margins."""
     if not model.limit_qpos_idx:
         return x.new_zeros(())
-    qj = x[list(model.limit_qpos_idx)]
+    qj = x[static_tensor(model.limit_qpos_idx, x.device)]
     lo, hi = model.limit_range[:, 0], model.limit_range[:, 1]
     margin = cp.limit_margin * (hi - lo)
     v_hi = torch.clamp(qj - (hi - margin), min=0.0)

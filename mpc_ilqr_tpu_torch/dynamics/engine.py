@@ -15,6 +15,8 @@ geometry. Every function takes one state and composes with
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.func import jvp, vmap
 
@@ -34,7 +36,9 @@ from mpc_ilqr_tpu_torch.models.robot import (
     JNT_HINGE,
     JNT_SLIDE,
     RobotModel,
+    static_tensor,
 )
+from mpc_ilqr_tpu_torch.ops import linalg
 
 
 def _flat(J: torch.Tensor) -> torch.Tensor:
@@ -107,17 +111,17 @@ def _body_accelerations(model: RobotModel, fr: KinFrames, v: torch.Tensor, omega
             al_p = torch.stack([zero3 if rt else alpha[parent[i]] for i, rt in zip(gi, root)])
             pc_p = torch.stack([zero3 if rt else pc[parent[i]] for i, rt in zip(gi, root)])
             ac_p = torch.stack([zero3 if rt else a_c[parent[i]] for i, rt in zip(gi, root)])
-            om_i = omega[gi]
+            g = static_tensor(gi, v.device)
+            d = static_tensor([dadr[i] for i in gi], v.device)
+            om_i = omega[g]
             coriolis = 0.0
             if jt == JNT_HINGE:
-                d = [dadr[i] for i in gi]
                 o = fr.dof_anchor[d]
                 al_i = al_p + qm.cross(om_p, fr.dof_axis[d]) * v[d][:, None]
             elif jt == JNT_BALL:
-                o = fr.dof_anchor[[dadr[i] for i in gi]]
+                o = fr.dof_anchor[d]
                 al_i = al_p + qm.cross(om_p, om_i - om_p)
             elif jt == JNT_SLIDE:
-                d = [dadr[i] for i in gi]
                 o = pc_p
                 al_i = al_p
                 coriolis = 2.0 * qm.cross(om_p, fr.dof_axis[d] * v[d][:, None])
@@ -126,7 +130,7 @@ def _body_accelerations(model: RobotModel, fr: KinFrames, v: torch.Tensor, omega
                 al_i = al_p
             r_o = o - pc_p
             a_o = ac_p + qm.cross(al_p, r_o) + qm.cross(om_p, qm.cross(om_p, r_o))
-            r_c = pc[gi] - o
+            r_c = pc[g] - o
             a_ci = a_o + qm.cross(al_i, r_c) + qm.cross(om_i, qm.cross(om_i, r_c)) + coriolis
             for r, i in enumerate(gi):
                 alpha[i] = al_i[r]
@@ -184,9 +188,9 @@ def contact_geometry(model: RobotModel, fr: KinFrames):
     """The q-only half of contact: point placement, Jacobians, elastic
     normal force. Returns (Jp (ncp,3,nv), f_el (ncp,3), fn_el (ncp,),
     active (ncp,), pw (ncp,3))."""
-    bidx = list(model.cp_body_idx)
+    bidx = static_tensor(model.cp_body_idx, fr.p.device)
     pw = fr.p[bidx] + torch.matmul(fr.R[bidx], model.cp_pos[..., None])[..., 0]
-    Jp = point_jacobians(model, fr, bidx, pw)
+    Jp = point_jacobians(model, fr, model.cp_body_idx, pw)
     # Penetration of the point's surface sphere into the z=0 plane.
     depth = model.cp_radius - pw[:, 2]
     active = (depth > 0.0).to(pw.dtype)
@@ -230,11 +234,15 @@ def contact_forces(model: RobotModel, x: torch.Tensor):
     return f_el - c_diag * torch.matmul(Jp, v), pw
 
 
+@functools.lru_cache(maxsize=32)
+def _actuator_selection(act_dof_adr: tuple, nv: int) -> tuple:
+    """The 0/1 (nv, nu) map of actuators onto their dofs."""
+    return tuple(tuple(1.0 if d == r else 0.0 for d in act_dof_adr) for r in range(nv))
+
+
 def _actuation_matrix(model: RobotModel, like: torch.Tensor) -> torch.Tensor:
     """S = ∂tau/∂u (nv, nu): the constant actuator scatter."""
-    S = torch.zeros((model.nv, model.nu), dtype=like.dtype, device=like.device)
-    for j, d in enumerate(model.act_dof_adr):
-        S[d, j] += 1.0
+    S = static_tensor(_actuator_selection(model.act_dof_adr, model.nv), like.device, like.dtype)
     return S * model.act_gear[None, :]
 
 
@@ -243,23 +251,50 @@ def applied_torques(model: RobotModel, u: torch.Tensor) -> torch.Tensor:
     return torch.matmul(_actuation_matrix(model, u), u)
 
 
-def integrate_position(model: RobotModel, q: torch.Tensor, v_next: torch.Tensor, h) -> torch.Tensor:
-    """Semi-implicit position update (uses the NEW velocity, like mj Euler)."""
-    pieces, at = [], 0
-    for i in range(model.nbody):
-        jt = model.body_jnt_type[i]
-        a, d = model.body_qpos_adr[i], model.body_dof_adr[i]
+@functools.lru_cache(maxsize=32)
+def _integration_segments(body_jnt_type: tuple, body_qpos_adr: tuple, body_dof_adr: tuple):
+    """The position update as segments in qpos order, and where the last
+    ends: ("keep", a0, a1) copies q[a0:a1]; ("lin", a0, a1, d0) is
+    q[a0:a1] + h v[d0:d0+a1-a0] (a free joint's position, or a run of
+    hinge/slide joints with consecutive qpos and dof addresses); ("quat",
+    a, d) integrates the quaternion at q[a:a+4] with the rate v[d:d+3]."""
+    segs, at = [], 0
+    for jt, a, d in zip(body_jnt_type, body_qpos_adr, body_dof_adr):
+        if jt not in (JNT_FREE, JNT_BALL, JNT_HINGE, JNT_SLIDE):
+            continue
+        if a > at:
+            segs.append(("keep", at, a))
         if jt == JNT_FREE:
-            pieces += [q[at:a], q[a : a + 3] + h * v_next[d : d + 3],
-                       qm.quat_integrate(q[a + 3 : a + 7], v_next[d + 3 : d + 6], h)]
+            segs += [("lin", a, a + 3, d), ("quat", a + 3, d + 3)]
             at = a + 7
         elif jt == JNT_BALL:
-            pieces += [q[at:a], qm.quat_integrate(q[a : a + 4], v_next[d : d + 3], h)]
+            segs.append(("quat", a, d))
             at = a + 4
-        elif jt in (JNT_HINGE, JNT_SLIDE):
-            pieces += [q[at:a], q[a : a + 1] + h * v_next[d : d + 1]]
+        else:
+            last = segs[-1] if segs else None
+            if last and last[0] == "lin" and last[2] == a and last[3] + a - last[1] == d:
+                segs[-1] = ("lin", last[1], a + 1, last[3])
+            else:
+                segs.append(("lin", a, a + 1, d))
             at = a + 1
-    return torch.cat(pieces + [q[at:]])
+    return tuple(segs), at
+
+
+def integrate_position(model: RobotModel, q: torch.Tensor, v_next: torch.Tensor, h) -> torch.Tensor:
+    """Semi-implicit position update (uses the NEW velocity, like mj Euler)."""
+    segs, end = _integration_segments(model.body_jnt_type, model.body_qpos_adr,
+                                      model.body_dof_adr)
+    pieces = []
+    for seg in segs:
+        if seg[0] == "keep":
+            pieces.append(q[seg[1]:seg[2]])
+        elif seg[0] == "lin":
+            _, a0, a1, d0 = seg
+            pieces.append(q[a0:a1] + h * v_next[d0:d0 + a1 - a0])
+        else:
+            _, a, d = seg
+            pieces.append(qm.quat_integrate(q[a:a + 4], v_next[d:d + 3], h))
+    return torch.cat(pieces + [q[end:]])
 
 
 def _cholesky(lhs: torch.Tensor) -> torch.Tensor:
@@ -279,7 +314,7 @@ def _cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def step(model: RobotModel, x: torch.Tensor, u: torch.Tensor, n_substeps: int = 1,
-         frozen_mass: bool = False) -> torch.Tensor:
+         frozen_mass: bool = False, solver: str = "chol") -> torch.Tensor:
     """One control step x_{t+1} = f(x_t, u_t), n_substeps physics substeps of
 
         (M + h D + h Jᵀ C J) v' = M v + h (tau + Jᵀ f_el − bias),
@@ -287,7 +322,11 @@ def step(model: RobotModel, x: torch.Tensor, u: torch.Tensor, n_substeps: int = 
 
     frozen_mass=True detaches M(q): zero tangents through the inertia
     assembly under `jvp` (a linearization-only approximation; the values are
-    unchanged)."""
+    unchanged). solver="chol" solves for v' with the factored Cholesky (the
+    form to differentiate); "masked" with ops/linalg.spd_solve, the unrolled
+    masked solve, for plain rollouts only."""
+    if solver not in ("chol", "masked"):
+        raise ValueError(f"engine.step solver must be 'chol' or 'masked', got {solver!r}")
     h = model.timestep / n_substeps
     for _ in range(n_substeps):
         q, v = model.split_state(normalize_state(model, x))
@@ -302,7 +341,10 @@ def step(model: RobotModel, x: torch.Tensor, u: torch.Tensor, n_substeps: int = 
             lhs = lhs + h * torch.matmul(Jp_f.T, Jp_f * c_diag.reshape(-1)[:, None])
             tau = tau + torch.matmul(Jp_f.T, f_el.reshape(-1))
         rhs = torch.matmul(M, v) + h * (tau - bias)
-        v_next = _cho_solve(_cholesky(lhs), rhs)
+        if solver == "masked":
+            v_next = linalg.spd_solve(lhs, rhs)
+        else:
+            v_next = _cho_solve(_cholesky(lhs), rhs)
         x = torch.cat([integrate_position(model, q, v_next, h), v_next])
     return x
 
@@ -385,4 +427,4 @@ def step_and_jac(model: RobotModel, x: torch.Tensor, u: torch.Tensor,
 def gravity_comp(model: RobotModel, x: torch.Tensor) -> torch.Tensor:
     """Actuator torques cancelling qfrc_bias at the current state."""
     q, v = model.split_state(normalize_state(model, x))
-    return bias_forces(model, q, v)[list(model.act_dof_adr)] / model.act_gear
+    return bias_forces(model, q, v)[static_tensor(model.act_dof_adr, x.device)] / model.act_gear

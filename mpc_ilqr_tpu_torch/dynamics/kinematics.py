@@ -21,6 +21,7 @@ from mpc_ilqr_tpu_torch.models.robot import (
     JNT_HINGE,
     JNT_SLIDE,
     RobotModel,
+    static_tensor,
 )
 
 
@@ -93,13 +94,15 @@ def forward_kinematics(model: RobotModel, q: torch.Tensor) -> KinFrames:
             # World-rooted bodies: the parent frame is the world (R = I, p = 0).
             Rp = torch.stack([R[parent[i]] if parent[i] >= 0 else eye for i in gi])
             pp = torch.stack([p[parent[i]] if parent[i] >= 0 else zero3 for i in gi])
-            Ri = torch.matmul(Rp, qm.quat_to_mat(model.body_quat[gi]))
-            pi = pp + _mv(Rp, model.body_pos[gi])
+            g = static_tensor(gi, q.device)
+            Ri = torch.matmul(Rp, qm.quat_to_mat(model.body_quat[g]))
+            pi = pp + _mv(Rp, model.body_pos[g])
             if jt in (JNT_HINGE, JNT_BALL):
-                jp = model.jnt_pos[gi]
+                jp = model.jnt_pos[g]
                 ja = [qadr[i] for i in gi]
                 if jt == JNT_HINGE:
-                    Rj = qm.quat_to_mat(qm.quat_axis_angle(model.jnt_axis[gi], q[ja]))
+                    Rj = qm.quat_to_mat(qm.quat_axis_angle(model.jnt_axis[g],
+                                                           q[static_tensor(ja, q.device)]))
                 else:  # ball: quaternion coordinate, rotation about jnt_pos
                     quat_g = torch.stack([q[a : a + 4] for a in ja])
                     norm = torch.sqrt(torch.sum(quat_g * quat_g, dim=-1, keepdim=True))
@@ -109,7 +112,7 @@ def forward_kinematics(model: RobotModel, q: torch.Tensor) -> KinFrames:
                 Ri = torch.matmul(Ri, Rj)
                 anchor = pi + _mv(Ri, jp)
                 if jt == JNT_HINGE:
-                    w = _mv(Ri, model.jnt_axis[gi])
+                    w = _mv(Ri, model.jnt_axis[g])
                     for r, i in enumerate(gi):
                         W[dadr[i]] = w[r]
                         O[dadr[i]] = anchor[r]
@@ -121,15 +124,15 @@ def forward_kinematics(model: RobotModel, q: torch.Tensor) -> KinFrames:
                             W[dadr[i] + k] = Ri[r, :, k]
                             O[dadr[i] + k] = anchor[r]
             elif jt == JNT_SLIDE:
-                ax = _mv(Ri, model.jnt_axis[gi])
-                pi = pi + ax * q[[qadr[i] for i in gi]][:, None]
+                ax = _mv(Ri, model.jnt_axis[g])
+                pi = pi + ax * q[static_tensor([qadr[i] for i in gi], q.device)][:, None]
                 for r, i in enumerate(gi):
                     W[dadr[i]] = ax[r]
                     lin[dadr[i]] = 1.0
             for r, i in enumerate(gi):
                 R[i], p[i] = Ri[r], pi[r]
 
-    lin_t = torch.tensor(lin, dtype=q.dtype, device=q.device)
+    lin_t = static_tensor(lin, q.device, q.dtype)
     return KinFrames(R=torch.stack(R), p=torch.stack(p), dof_axis=torch.stack(W),
                      dof_anchor=torch.stack(O), dof_linear=lin_t)
 
@@ -137,7 +140,7 @@ def forward_kinematics(model: RobotModel, q: torch.Tensor) -> KinFrames:
 def point_jacobians(model: RobotModel, fr: KinFrames, body_idx, points_w: torch.Tensor):
     """Linear Jacobians (n, 3, nv) of world points points_w (n, 3) fixed on
     bodies `body_idx` (a static index list)."""
-    mask = model.ancestor_mask[list(body_idx)]  # (n, nv)
+    mask = model.ancestor_mask[static_tensor(body_idx, points_w.device)]  # (n, nv)
     lin = fr.dof_linear[None, :, None]
     diff = points_w[:, None, :] - fr.dof_anchor[None, :, :]  # (n, nv, 3)
     rot = qm.cross(fr.dof_axis[None].expand_as(diff), diff)
@@ -179,14 +182,14 @@ def com_velocity(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> torch.T
 
 def ee_positions(model: RobotModel, q: torch.Tensor) -> torch.Tensor:
     """World positions of the end-effector body frames, (n_ee, 3)."""
-    return forward_kinematics(model, q).p[list(model.ee_body_idx)]
+    return forward_kinematics(model, q).p[static_tensor(model.ee_body_idx, q.device)]
 
 
 def ee_velocities(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """World linear velocities of the end-effector body frames, (n_ee, 3)."""
     fr = forward_kinematics(model, q)
-    idx = list(model.ee_body_idx)
-    return torch.matmul(point_jacobians(model, fr, idx, fr.p[idx]), v)
+    idx = model.ee_body_idx
+    return torch.matmul(point_jacobians(model, fr, idx, fr.p[static_tensor(idx, q.device)]), v)
 
 
 class TaskFeatures(NamedTuple):
@@ -208,8 +211,8 @@ def task_features(model: RobotModel, x: torch.Tensor) -> TaskFeatures:
     Jv, _ = body_jacobians(model, fr, pc)
     com_vel = (m[:, None] * torch.matmul(Jv, v)).sum(0) / msum
     if model.n_ee:
-        idx = list(model.ee_body_idx)
-        pw = fr.p[idx]
+        idx = model.ee_body_idx
+        pw = fr.p[static_tensor(idx, x.device)]
         ee_vel = torch.matmul(point_jacobians(model, fr, idx, pw), v)
     else:
         pw = x.new_zeros((0, 3))

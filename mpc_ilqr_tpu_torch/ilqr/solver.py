@@ -10,6 +10,12 @@
   outer loop     the reference's adaptive regularization, retry, give-up
                  and divergence policy (ilqr.cpp:619-656)
 
+`solve` decides on the host (early exit, one attempt only when the first is
+accepted). `device_solve` is the same iteration with every decision a
+tensor — fixed trips, carries frozen by `torch.where` — so it runs under
+`torch.func.vmap` (`solve_batched`, parallel/fleet.py) and waits for the
+device nowhere.
+
 The backend names are the reference config's: "pallas" / "pallas_batched"
 select the hand-written CUDA kernels (their plain versions on CPU tensors),
 "xla" and "scan" select the plain loops.
@@ -31,7 +37,7 @@ from mpc_ilqr_tpu_torch.costs.quadratics import (
 )
 from mpc_ilqr_tpu_torch.costs.references import ReferenceWindow
 from mpc_ilqr_tpu_torch.dynamics import engine
-from mpc_ilqr_tpu_torch.models.robot import RobotModel
+from mpc_ilqr_tpu_torch.models.robot import RobotModel, static_tensor
 from mpc_ilqr_tpu_torch.ops import riccati
 from mpc_ilqr_tpu_torch.ops import rollout_kernel as rk
 
@@ -74,6 +80,12 @@ class ILQRConfig:
     # With outer_loop="scan": linearize on every k-th trip only; the trips in
     # between reuse the previous trip's A, B and quadraticize anew.
     linearize_every: int = 1
+    # The velocity solve of the plain rollout and line-search chains: "chol"
+    # (factored) or "masked" (ops/linalg.spd_solve); the kernels ignore it.
+    rollout_solver: str = "chol"
+    # Not ported (ROADMAP Queue 1): check_config raises on a non-zero value.
+    lin_chunk: int = 0
+    hess_chunk: int = 0
 
 
 _SUPPORTED = {
@@ -86,6 +98,7 @@ _SUPPORTED = {
     "ls_backend": ("xla", "pallas", "pallas_batched"),
     "cascade_p1_backend": ("xla", "pallas"),
     "quad_mode": ("gn",),
+    "rollout_solver": ("chol", "masked"),
 }
 
 
@@ -97,6 +110,34 @@ def check_config(cfg: ILQRConfig) -> None:
                 f"this package has {allowed}")
     if cfg.linearize_every < 1:
         raise ValueError(f"ILQRConfig.linearize_every must be >= 1, got {cfg.linearize_every}")
+    for field in ("lin_chunk", "hess_chunk"):
+        if getattr(cfg, field):
+            raise NotImplementedError(f"ILQRConfig.{field}={getattr(cfg, field)!r} is not ported "
+                                      f"(ROADMAP.md Queue 1); this package has 0")
+
+
+def vmap_safe(cfg: ILQRConfig) -> ILQRConfig:
+    """The config to batch (reference `vmap_safe`): a cascade line search
+    becomes first_accept (the same selection in one batch; batched, the
+    cascade would run both phases for every instance) and the early-exit
+    outer loop the fixed-trip "scan" (a batch runs to its slowest member)."""
+    repl = {}
+    if cfg.line_search == "cascade":
+        repl["line_search"] = "first_accept"
+    if cfg.outer_loop == "while":
+        repl["outer_loop"] = "scan"
+    return dataclasses.replace(cfg, **repl) if repl else cfg
+
+
+def batched_config(cfg: ILQRConfig) -> ILQRConfig:
+    """vmap_safe(cfg) on the plain chains: rollout_backend and ls_backend
+    "xla". The batched path takes no StepPlan, as the reference's reaches
+    its plain chains through plan=None; the CUDA kernels take one instance.
+    backward="pallas" (K4) raises for the same reason."""
+    if cfg.backward == "pallas":
+        raise NotImplementedError("backward='pallas' (K4) solves one instance; K1-K4 over a "
+                                  "batch grid is a later option (ROADMAP.md Queue 2)")
+    return dataclasses.replace(vmap_safe(cfg), rollout_backend="xla", ls_backend="xla")
 
 
 class ILQRSolution(NamedTuple):
@@ -109,13 +150,17 @@ class ILQRSolution(NamedTuple):
     reg: torch.Tensor  # () final lambda
     # finite cost AND (an accepted step OR stationary) AND not diverged
     success: bool
+    # (backward pass + line search) attempts the solve needed; device_solve
+    # runs inner_attempts on every trip, masked, whatever this says
+    attempts: int = 0
+    # (`device_solve` gives iterations, success and attempts as 0-dim tensors)
 
 
 def rollout(model: RobotModel, cfg: ILQRConfig, x0, us, plan=None) -> torch.Tensor:
     """Open-loop rollout: (N+1, nx) from x0 under us."""
     if cfg.rollout_backend == "pallas":
         return rk.rollout_kernel(model, plan, x0, us, cfg.n_substeps)
-    return rk.rollout_plain(model, x0, us, cfg.n_substeps)
+    return rk.rollout_plain(model, x0, us, cfg.n_substeps, solver=cfg.rollout_solver)
 
 
 def linearize(model: RobotModel, cfg: ILQRConfig, xs, us):
@@ -160,6 +205,33 @@ def backward_pass(A, B, quad: CostQuadratics, reg, pd_bump: float):
     return torch.stack(K_out), torch.stack(k_out)
 
 
+def rollout_alphas(model: RobotModel, cp: CostParams, cfg: ILQRConfig, win: ReferenceWindow,
+                   x0, xbar, ubar, K, kff, alphas, backend: str, plan=None):
+    """Closed-loop rollouts u = ū + α k + K (x − x̄) of a batch of alphas on
+    `backend` (ilqr.cpp:311-361) and their costs, a non-finite cost as inf:
+    xs (A, N+1, nx), us (A, N, nu), costs (A,)."""
+    if backend == "pallas_batched":
+        xs_b, us_b = rk.linesearch_rollout_kernel_batched(
+            model, plan, x0, xbar, ubar, K, kff, alphas, cfg.n_substeps)
+    elif backend == "pallas":
+        xs_b, us_b = rk.linesearch_rollout_kernel(
+            model, plan, x0, xbar, ubar, K, kff, alphas, cfg.n_substeps)
+    else:
+        xs_b, us_b = rk.linesearch_rollout_batched_plain(
+            model, x0, xbar, ubar, K, kff, alphas, cfg.n_substeps, solver=cfg.rollout_solver)
+    costs = trajectory_costs(model, cp, win, xs_b, us_b)
+    return xs_b, us_b, torch.where(torch.isfinite(costs), costs, torch.inf)
+
+
+def pick_alpha(cfg: ILQRConfig, costs, baseline_cost):
+    """(accepted, idx) as tensors: the first improving alpha (alphas are
+    ordered descending) or, with line_search="argmin", the cheapest."""
+    improves = costs < baseline_cost - cfg.accept_threshold
+    if cfg.line_search == "argmin":
+        return improves.any(), torch.argmin(costs)
+    return improves.any(), torch.argmax(improves.to(torch.uint8))
+
+
 def line_search(model: RobotModel, cp: CostParams, cfg: ILQRConfig, win: ReferenceWindow,
                 x0, xbar, ubar, K, kff, baseline_cost, plan=None):
     """Closed-loop rollouts of the alphas (ilqr.cpp:311-361).
@@ -167,41 +239,40 @@ def line_search(model: RobotModel, cp: CostParams, cfg: ILQRConfig, win: Referen
     Returns (accepted, xs, us, cost, best_cost): the selected alpha's
     trajectory — the largest improving alpha (first_accept, cascade) or the
     cheapest (argmin) — and the least cost over all alphas tried."""
-    alphas = torch.tensor(cfg.alphas, dtype=x0.dtype, device=x0.device)
+    alphas = static_tensor(cfg.alphas, x0.device, x0.dtype)
 
     def roll_batch(alphas_b, backend):
-        if backend == "pallas_batched":
-            xs_b, us_b = rk.linesearch_rollout_kernel_batched(
-                model, plan, x0, xbar, ubar, K, kff, alphas_b, cfg.n_substeps)
-        elif backend == "pallas":
-            xs_b, us_b = rk.linesearch_rollout_kernel(
-                model, plan, x0, xbar, ubar, K, kff, alphas_b, cfg.n_substeps)
-        else:
-            xs_b, us_b = rk.linesearch_rollout_batched_plain(
-                model, x0, xbar, ubar, K, kff, alphas_b, cfg.n_substeps)
-        costs = trajectory_costs(model, cp, win, xs_b, us_b)
-        return xs_b, us_b, torch.where(torch.isfinite(costs), costs, torch.inf)
+        return rollout_alphas(model, cp, cfg, win, x0, xbar, ubar, K, kff, alphas_b, backend, plan)
 
-    bar = baseline_cost - cfg.accept_threshold
     if cfg.line_search == "cascade" and len(cfg.alphas) > 1:
         # α=1 alone first; the other alphas, in order, only on reject.
         xs1, us1, c1 = roll_batch(alphas[:1], cfg.cascade_p1_backend)
-        if bool(c1[0] < bar):
+        if bool(c1[0] < baseline_cost - cfg.accept_threshold):
             return True, xs1[0], us1[0], c1[0], c1[0]
         fb = "pallas_batched" if cfg.ls_backend == "pallas_batched" else "xla"
         xs_r, us_r, costs_r = roll_batch(alphas[1:], fb)
-        improves = costs_r < bar
-        idx = int(torch.argmax(improves.to(torch.uint8)))
-        return (bool(improves.any()), xs_r[idx], us_r[idx], costs_r[idx],
+        accepted, idx = pick_alpha(cfg, costs_r, baseline_cost)
+        idx = int(idx)
+        return (bool(accepted), xs_r[idx], us_r[idx], costs_r[idx],
                 torch.minimum(c1[0], costs_r.min()))
 
     xs_all, us_all, costs = roll_batch(alphas, cfg.ls_backend)
-    improves = costs < bar
-    if cfg.line_search == "argmin":
-        idx = int(torch.argmin(costs))
-    else:  # first improving alpha; alphas are ordered descending
-        idx = int(torch.argmax(improves.to(torch.uint8)))
-    return bool(improves.any()), xs_all[idx], us_all[idx], costs[idx], costs.min()
+    accepted, idx = pick_alpha(cfg, costs, baseline_cost)
+    idx = int(idx)
+    return bool(accepted), xs_all[idx], us_all[idx], costs[idx], costs.min()
+
+
+def line_search_device(model: RobotModel, cp: CostParams, cfg: ILQRConfig,
+                       win: ReferenceWindow, x0, xbar, ubar, K, kff, baseline_cost):
+    """`line_search` for first_accept or argmin on the plain chains, with
+    the pick taken by tensor index: (accepted, xs, us, cost, best_cost),
+    accepted a 0-dim bool tensor."""
+    alphas = static_tensor(cfg.alphas, x0.device, x0.dtype)
+    xs_all, us_all, costs = rollout_alphas(model, cp, cfg, win, x0, xbar, ubar, K, kff, alphas,
+                                           "xla")
+    accepted, idx = pick_alpha(cfg, costs, baseline_cost)
+    take = lambda t: t.index_select(0, idx[None])[0]
+    return accepted, take(xs_all), take(us_all), take(costs), costs.min()
 
 
 def solve(model: RobotModel, cp: CostParams, cfg: ILQRConfig, x0, win: ReferenceWindow,
@@ -230,7 +301,7 @@ def solve(model: RobotModel, cp: CostParams, cfg: ILQRConfig, x0, win: Reference
     ubar = ubar_init
     K = torch.zeros((N, nu, nx), dtype=dt, device=dev)
     kff = torch.zeros((N, nu), dtype=dt, device=dev)
-    it, done = 0, False
+    it, done, attempts = 0, False, 0
     ever_accepted = stationary = diverged = False
 
     relinearize = 1 if cfg.outer_loop == "while" else cfg.linearize_every
@@ -249,6 +320,7 @@ def solve(model: RobotModel, cp: CostParams, cfg: ILQRConfig, x0, win: Reference
                 K, kff = backward_pass(A, B, quad, reg_a, cfg.pd_bump)
             ok, xs, us, c_new, best = line_search(
                 model, cp, cfg, win, x0, xbar, ubar, K, kff, baseline, plan=plan)
+            attempts += 1
             if ok:
                 break
             reg_a = torch.clamp(reg_a * 10.0, max=cfg.reg_max)
@@ -272,4 +344,95 @@ def solve(model: RobotModel, cp: CostParams, cfg: ILQRConfig, x0, win: Reference
 
     success = (ever_accepted or stationary) and not diverged and bool(torch.isfinite(cost))
     return ILQRSolution(xbar=xbar, ubar=ubar, K=K, kff=kff, cost=cost, iterations=it,
-                        reg=reg, success=success)
+                        reg=reg, success=success, attempts=attempts)
+
+
+def _where(cond, new: dict, old: dict) -> dict:
+    return {k: torch.where(cond, new[k], old[k]) for k in old}
+
+
+def device_solve(model: RobotModel, cp: CostParams, cfg: ILQRConfig, x0, win: ReferenceWindow,
+                 ubar_init, xbar_init=None, reg0=None) -> ILQRSolution:
+    """`solve` of vmap_safe(cfg) with every decision made on the device (the
+    reference's outer_loop="scan" form, mpc_ilqr_tpu/ilqr/solver.py:527-625).
+
+    Exactly max_iterations trips (linearizing on every linearize_every-th);
+    once an iteration finishes the solve (converged, diverged or given up),
+    every carry stays frozen by `torch.where`. Each trip makes the
+    inner_attempts (backward pass + line search) attempts always, the
+    second masked where the first was accepted. The line search picks its
+    alpha by tensor index; iterations and success are 0-dim tensors. No
+    `bool()`, `int()` or `.item()`: it runs under `torch.func.vmap` and
+    waits for the device nowhere. Takes no StepPlan: the plain chains only
+    (rollout_backend and ls_backend "xla", backward "scan")."""
+    cfg = vmap_safe(cfg)
+    check_config(cfg)
+    if (cfg.rollout_backend, cfg.ls_backend, cfg.backward) != ("xla", "xla", "scan"):
+        raise NotImplementedError(
+            "device_solve runs the plain chains only (rollout_backend='xla', ls_backend='xla', "
+            "backward='scan'); see batched_config and ROADMAP.md Queue 1 item 2")
+    N, nu, nx = cfg.N, model.nu, model.nx
+    dt, dev = x0.dtype, x0.device
+    if xbar_init is None:
+        xbar_init = rollout(model, cfg, x0, ubar_init)
+    if reg0 is None:
+        reg0 = cfg.reg_init
+    reg = reg0.to(dt) if torch.is_tensor(reg0) else torch.full((), reg0, dtype=dt, device=dev)
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+    c = dict(xbar=rollout(model, cfg, x0, ubar_init), ubar=ubar_init,
+             K=torch.zeros((N, nu, nx), dtype=dt, device=dev),
+             kff=torch.zeros((N, nu), dtype=dt, device=dev),
+             cost=trajectory_cost(model, cp, win, xbar_init, ubar_init), reg=reg,
+             it=torch.zeros((), dtype=torch.int64, device=dev), done=false,
+             attempts=torch.zeros((), dtype=torch.int64, device=dev),
+             ever_accepted=false, stationary=false, diverged=false)
+
+    def attempt(A, B, quad, xbar, ubar, baseline, reg_a):
+        K, kff = backward_pass(A, B, quad, reg_a, cfg.pd_bump)
+        ok, xs, us, cost, best = line_search_device(model, cp, cfg, win, x0, xbar, ubar, K, kff,
+                                                    baseline)
+        reg_next = torch.where(ok, reg_a, torch.clamp(reg_a * 10.0, max=cfg.reg_max))
+        return dict(reg=reg_next, ok=ok, K=K, kff=kff, xs=xs, us=us, cost=cost, best=best)
+
+    AB = None
+    for trip in range(cfg.max_iterations):
+        if trip % cfg.linearize_every == 0:
+            AB = linearize(model, cfg, c["xbar"], c["ubar"])
+        xbar, ubar = c["xbar"], c["ubar"]
+        quad = quadraticize_gn(model, cp, win, xbar, ubar)
+        baseline = trajectory_cost(model, cp, win, xbar, ubar)
+        a = attempt(*AB, quad, xbar, ubar, baseline, c["reg"])
+        needed = c["attempts"] + 1
+        if cfg.inner_attempts != 1:  # the retry with λ×10, kept where the first failed
+            needed = needed + (~a["ok"]).to(torch.int64)
+            a = _where(a["ok"], a, attempt(*AB, quad, xbar, ubar, baseline, a["reg"]))
+        ok = a["ok"]
+        cost = torch.where(ok, a["cost"], c["cost"])
+        converged = ok & (torch.abs(cost - c["cost"]) < cfg.tolerance)
+        diverged = ok & (cost > cfg.divergence_threshold)
+        give_up = ~ok & (c["it"] > 1)
+        new = dict(xbar=torch.where(ok, a["xs"], xbar), ubar=torch.where(ok, a["us"], ubar),
+                   K=a["K"], kff=a["kff"], cost=cost,
+                   reg=torch.where(ok, torch.clamp(a["reg"] / 2.0, min=cfg.reg_min), a["reg"]),
+                   it=c["it"] + 1, done=give_up | converged | diverged, attempts=needed,
+                   ever_accepted=c["ever_accepted"] | ok,
+                   # nothing improved, and nothing moved the cost beyond the tolerance
+                   stationary=c["stationary"] | (~ok & (a["best"] <= baseline + cfg.tolerance)),
+                   diverged=c["diverged"] | diverged)
+        c = _where(c["done"], c, new)
+
+    success = (c["ever_accepted"] | c["stationary"]) & ~c["diverged"] & torch.isfinite(c["cost"])
+    return ILQRSolution(xbar=c["xbar"], ubar=c["ubar"], K=c["K"], kff=c["kff"], cost=c["cost"],
+                        iterations=c["it"], reg=c["reg"], success=success,
+                        attempts=c["attempts"])
+
+
+def solve_batched(model: RobotModel, cp: CostParams, cfg: ILQRConfig, x0, win: ReferenceWindow,
+                  ubar_inits) -> ILQRSolution:
+    """`device_solve` of batched_config(cfg) over a leading batch of initial
+    controls (B, N, nu) — warm-start seeds — sharing the model, x0 and the
+    window (`jax.vmap(solve)` in tools/bench_suite.py:206). Every field of
+    the solution gains the leading axis B."""
+    cfg = batched_config(cfg)
+    return ILQRSolution(*vmap(lambda u0: tuple(device_solve(model, cp, cfg, x0, win, u0)))(
+        ubar_inits))

@@ -2,8 +2,10 @@
 
 Each function takes the reference objects' fields as numpy arrays (and the
 static fields as plain Python values) in a dict and returns the port's
-object on `device` in `dtype`. The tests build both sides from one source
-this way; nothing here imports the reference package.
+object on `device` in `dtype`. Arrays keep their shape, so a batched
+model or state (a leading fleet axis on every array) comes over as one.
+The tests build both sides from one source this way; nothing here imports
+the reference package.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 from mpc_ilqr_tpu_torch.costs.params import WEIGHT_FIELDS, CostParams
 from mpc_ilqr_tpu_torch.costs.references import TRACK_FIELDS, ReferenceSet
 from mpc_ilqr_tpu_torch.models.robot import ARRAY_FIELDS, STATIC_FIELDS, RobotModel
+from mpc_ilqr_tpu_torch.mpc.controller import MPCState
 
 
 def _t(a, device, dtype):
@@ -31,3 +34,11 @@ def cost_params_from_numpy(d: dict, device="cuda", dtype=torch.float32) -> CostP
 
 def refs_from_numpy(d: dict, device="cuda", dtype=torch.float32) -> ReferenceSet:
     return ReferenceSet(**{f: _t(d[f], device, dtype) for f in TRACK_FIELDS})
+
+
+def mpc_state_from_numpy(d: dict, device="cuda", dtype=torch.float32) -> MPCState:
+    """The state of step_once_device (t_idx int64 and has_prev bool tensors)."""
+    return MPCState(
+        t_idx=torch.as_tensor(np.asarray(d["t_idx"], dtype=np.int64), device=device),
+        has_prev=torch.as_tensor(np.asarray(d["has_prev"], dtype=bool), device=device),
+        **{f: _t(d[f], device, dtype) for f in ("prev_xbar", "prev_ubar", "prev_K", "reg")})

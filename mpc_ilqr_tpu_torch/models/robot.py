@@ -8,6 +8,7 @@ dtype (`load_robot(..., device=, dtype=)`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Optional, Tuple
 
@@ -121,6 +122,18 @@ class RobotModel:
 
     def split_state(self, x: torch.Tensor):
         return x[..., : self.nq], x[..., self.nq :]
+
+
+@functools.lru_cache(maxsize=None)
+def _static(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def static_tensor(values, device, dtype=torch.long) -> torch.Tensor:
+    """A model's static index list (or other constant tuple) as a tensor on
+    `device`, made once per process. Indexing a CUDA tensor with a Python
+    list copies the list to the card and waits for the copy on every call."""
+    return _static(tuple(values), dtype, torch.device(device))
 
 
 def load_robot(

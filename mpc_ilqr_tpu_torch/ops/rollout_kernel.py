@@ -34,11 +34,11 @@ def reset_launch_counts() -> None:
 
 # ---- plain versions ---------------------------------------------------------
 
-def rollout_plain(model: RobotModel, x0, us, n_substeps: int = 1):
-    """xs (N+1, nx): x_{t+1} = step(x_t, u_t)."""
+def rollout_plain(model: RobotModel, x0, us, n_substeps: int = 1, solver: str = "chol"):
+    """xs (N+1, nx): x_{t+1} = step(x_t, u_t) (`solver`: engine.step's)."""
     xs = [x0]
     for t in range(us.shape[0]):
-        xs.append(engine.step(model, xs[-1], us[t], n_substeps))
+        xs.append(engine.step(model, xs[-1], us[t], n_substeps, solver=solver))
     return torch.stack(xs)
 
 
@@ -59,9 +59,9 @@ def linesearch_rollout_plain(model: RobotModel, x0, xbar, ubar, K, kff, alphas,
 
 
 def linesearch_rollout_batched_plain(model: RobotModel, x0, xbar, ubar, K, kff, alphas,
-                                     n_substeps: int = 1):
+                                     n_substeps: int = 1, solver: str = "chol"):
     """All alphas advanced together, one batched step per t."""
-    step_b = vmap(lambda x, u: engine.step(model, x, u, n_substeps))
+    step_b = vmap(lambda x, u: engine.step(model, x, u, n_substeps, solver=solver))
     x = x0[None].expand(alphas.shape[0], -1)
     xs, us = [x], []
     for t in range(ubar.shape[0]):

@@ -110,6 +110,7 @@ import chip_smoke
 import mpc_ilqr_tpu_torch, mpc_ilqr_tpu_torch.interop, mpc_ilqr_tpu_torch.ops.step_plan
 import mpc_ilqr_tpu_torch.ops.rollout_kernel, mpc_ilqr_tpu_torch.ops._build
 import mpc_ilqr_tpu_torch.ops.riccati, mpc_ilqr_tpu_torch.scenarios
+import mpc_ilqr_tpu_torch.ops.linalg, mpc_ilqr_tpu_torch.parallel.fleet
 import mpc_ilqr_tpu_torch.io.native, mpc_ilqr_tpu_torch.io.logging
 import mpc_ilqr_tpu_torch.utils.profiling, mpc_ilqr_tpu_torch.mpc.checkpoint
 import mpc_ilqr_tpu_torch.run_mpc

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import RICCATI_REG, RICCATI_T_BAD, riccati_problem
+from chip_smoke import (RICCATI_REG, RICCATI_T_BAD, SEED_COST_RTOL, SEED_UBAR_ATOL,
+                        riccati_problem)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 2e-4  # the JAX package's kernel tolerance, tests/test_ops.py:165, :214
@@ -430,3 +431,67 @@ def test_profiler_stage_waits_for_a_cuda_output(card):
     assert done.query()
     assert len(prof.times["matmuls"]) == 1
     assert "Card peak allocated" in prof.report()
+
+
+def test_fleet_of_8_steps_on_the_card_without_a_host_sync(card):
+    """scenarios.fleet at 8 instances (N=25): the cold step, then the warm
+    step under sync-debug "error" (no host sync), finite controls, every
+    output on the card and no kernel launched (the plain chains)."""
+    from mpc_ilqr_tpu_torch import scenarios
+    from mpc_ilqr_tpu_torch.ops import riccati
+    from mpc_ilqr_tpu_torch.ops import rollout_kernel as rk
+    from mpc_ilqr_tpu_torch.parallel import fleet
+
+    fl = scenarios.fleet(n=8)
+    assert fl.chunk == 8 and fl.prob.cfg.N == 25 and fl.prob.cfg.rollout_solver == "masked"
+    rk.reset_launch_counts()
+    riccati.reset_launch_counts()
+    step = lambda s: fleet.fleet_step_chunked(fl.models, fl.prob.cp, fl.prob.cfg, fl.prob.refs,
+                                              s, fl.xs, fl.chunk)
+    states, u, diag = step(fl.states)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        states, u, diag = step(states)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert u.shape == (8, fl.prob.model.nu) and u.device.type == "cuda"
+    assert states.prev_K.device.type == diag.cost.device.type == "cuda"
+    assert bool(torch.isfinite(u).all()) and bool(torch.isfinite(diag.cost).all())
+    assert bool(states.has_prev.all())
+    assert not any(rk.LAUNCHES.values()) and not any(riccati.LAUNCHES.values())
+
+
+def test_batched_seed_solve_equals_one_seed_at_a_time(card):
+    """solve_batched over 2 seeds of scenarios.batched_linesearch (16
+    alphas, N=25) against device_solve on each seed alone, at chip_smoke's
+    float32 bars."""
+    from mpc_ilqr_tpu_torch import scenarios
+    from mpc_ilqr_tpu_torch.ilqr import solver
+
+    ss = scenarios.batched_linesearch(n_seeds=2)
+    p = ss.prob
+    sol = solver.solve_batched(p.model, p.cp, p.cfg, ss.x0, ss.window, ss.seeds)
+    assert sol.cost.device.type == "cuda" and bool(torch.isfinite(sol.cost).all())
+    cfg = solver.batched_config(p.cfg)
+    for s in range(2):
+        one = solver.device_solve(p.model, p.cp, cfg, ss.x0, ss.window, ss.seeds[s])
+        rel = abs(float(one.cost) - float(sol.cost[s])) / max(1.0, abs(float(one.cost)))
+        assert rel <= SEED_COST_RTOL
+        assert float((one.ubar - sol.ubar[s]).abs().max()) <= SEED_UBAR_ATOL
+
+
+def test_masked_spd_solve_on_the_card_equals_the_cpu(card):
+    """ops/linalg.spd_solve on H1-sized (25x25) SPD batches, float32: the
+    card's result against the CPU's on the same inputs, at atol 2e-4."""
+    from mpc_ilqr_tpu_torch.ops import linalg
+
+    rng = np.random.default_rng(0)
+    M = rng.normal(size=(64, 25, 25))
+    A = torch.as_tensor(M @ np.swapaxes(M, -1, -2) + 25 * np.eye(25), dtype=torch.float32)
+    b = torch.as_tensor(rng.normal(size=(64, 25, 3)), dtype=torch.float32)
+    got = linalg.spd_solve(A.cuda(), b.cuda())
+    want = linalg.spd_solve(A, b)
+    assert got.device.type == "cuda"
+    assert float((got.cpu() - want).abs().max()) <= ATOL
+    assert float((A @ want - b).abs().max()) <= ATOL
