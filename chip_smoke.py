@@ -61,6 +61,26 @@ Phases, each printing its wall seconds:
               equal to the chunked step's first chunk; the peak memory and
               the time of each part of a chunk. Both paths take no kernel:
               their launch counts must read 0
+  9. exact    (a) scenarios.exact_standing: the standing flagship on the
+              reference's own derivative model (linearization "ad",
+              quad_mode "exact"), 15 MPC steps of run_closed_loop in
+              float32 with K1-K3, held to the gates of phase 4; ms and
+              iterations per step, one iteration's linearize and
+              quadraticize beside the flagship's, the peak memory, and the
+              JAX package's own run of the same steps (EXACT_ANCHOR).
+              (b) every other new mode once on H1 at N=25 in float64, at
+              one nominal (standing, gravity compensation plus seeded
+              noise): "ad_frozen_mass" against "ad"; "fd" against "ad" in
+              the JAX test's own setting (load_h1's contact, standing at
+              gravity compensation, N=3, fd_eps 1e-6) and, at N=25, its
+              truncation error shrinking tenfold with fd_eps;
+              lin_chunk 16 against full width (ad, structured,
+              structured_frozen_mass),
+              hess_chunk 16 against full width, GN against exact, and
+              trajectory_cost(mode="full") against the sum of its terms,
+              each at the JAX test's bar (EXACT_BARS); then one float32
+              solve with cost_mode "full", held to success, a finite cost
+              and a decrease
 Each path is driven with every launch count set to 0 just before it and read
 just after. Then one `kernels` JSON line and, last, the `ok` JSON line. Any
 failed check exits non-zero before the result lines. Imports only the port,
@@ -104,6 +124,23 @@ FIRST_K4 = {(10, 51, 19, "plain"): 2.384e-06, (4, 13, 5, "plain"): 3.576e-07,
 # Phase 8's bars on the batched seed solve against the same device-side solve run on
 # one seed at a time (float32: batched and single products round differently).
 SEED_COST_RTOL, SEED_UBAR_ATOL = 1e-4, 3e-3
+# The JAX package's own run of phase 9 (a) (config.yaml with the standing references,
+# linearization "ad", quad_mode "exact", 15 MPC steps of run_closed_loop, float32, on
+# the CPU; tools/exact_anchor.py). Information only: the float32 floor applies.
+EXACT_ANCHOR = dict(steps=15, solve_ok=15, first_cost=1.093064, final_cost=0.400029,
+                    base_z=1.04269, iterations_per_step=1.2)
+# Phase 9 (b)'s bars (low, high), float64: tests/test_linearize_fd.py:23-24 (fd against
+# ad, in that test's setting, N=3), :45-47 (frozen mass), :132-136 (lin_chunk against full
+# width); tests/test_costs.py:194-198 (hess_chunk) and :254-256 (GN against exact);
+# 0.0 means equal to the last bit. A truncation error ∝ fd_eps shrinks tenfold with it.
+EXACT_BARS = {"fd vs ad": (0.0, 5e-4), "fd truncation, gap(1e-6) / gap(1e-7)": (8.0, 12.0),
+              "ad_frozen_mass vs ad, B": (0.0, 1e-9), "ad_frozen_mass vs ad, A": (0.0, 0.05),
+              "lin_chunk 16 (ad)": (0.0, 1e-8), "lin_chunk 16 (structured)": (0.0, 1e-8),
+              "lin_chunk 16 (structured_frozen_mass)": (0.0, 1e-8),
+              "hess_chunk 16, lxx": (0.0, 1e-9), "hess_chunk 16, lx": (0.0, 0.0),
+              "hess_chunk 16, luu": (0.0, 0.0), "gn vs exact, lx": (0.0, 1e-9),
+              "gn vs exact, lu": (0.0, 0.0), "gn vs exact, luu": (0.0, 0.0),
+              "trajectory_cost full vs its terms (relative)": (0.0, 1e-12)}
 
 
 def fail(msg: str) -> None:
@@ -503,6 +540,180 @@ def batched_phase(report, smi_line, reset_counts, read_counts):
     print(f"  per chunk: {trips} x (linearize + quadraticize_gn), {1 + trips} x trajectory_cost, "
           f"2 x rollout, {att} x (backward_pass + line search) = {est:.1f} ms of the "
           f"{step_s * 1e3 / (n // chunk):.1f} ms a chunk takes in the fleet step")
+
+
+def exact_phase(report, smi_line, reset_counts, read_counts):
+    """Phase 9: scenarios.exact_standing's closed loop on the card with its
+    gates, timings and launches (`report`'s "exact" path), then each other
+    new derivative mode once in float64 against its bar."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mpc_ilqr_tpu_torch import scenarios
+    from mpc_ilqr_tpu_torch.costs import terms
+    from mpc_ilqr_tpu_torch.costs.quadratics import quadraticize, trajectory_cost
+    from mpc_ilqr_tpu_torch.costs.references import extract_window
+    from mpc_ilqr_tpu_torch.dynamics import engine
+    from mpc_ilqr_tpu_torch.ilqr import solver
+    from mpc_ilqr_tpu_torch.io.config import load_config
+    from mpc_ilqr_tpu_torch.models.robot import load_h1, standing_state
+    from mpc_ilqr_tpu_torch.mpc import controller
+
+    # (a) the standing flagship on the reference's own derivative model
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ep = scenarios.exact_standing()
+    m, cp, cfg, refs, plan = ep.model, ep.cp, ep.cfg, ep.refs, ep.plan
+    if plan is None or m.device.type != "cuda":
+        fail("exact: setup did not place the problem and its kernel plan on the card")
+    print(f"exact: linearization {cfg.linearization!r}, quad_mode {cfg.quad_mode!r}, cost_mode "
+          f"{cfg.cost_mode!r}, line search {cfg.line_search!r} ({cfg.rollout_backend}, "
+          f"{cfg.ls_backend}), N={cfg.N}, max_iterations {cfg.max_iterations}, {m.dtype}")
+    x_init = standing_state(m)
+    reset_counts()
+    t1 = time.perf_counter()
+    _, xT, hist = controller.run_closed_loop(m, cp, cfg, refs, controller.init_state(m, cfg),
+                                             x_init, N_STEPS, plan=plan)
+    counts = read_counts()
+    run_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    costs, xs = hist["cost"].cpu().numpy(), hist["x"].cpu().numpy()
+    for i in range(N_STEPS):
+        print(f"exact step {i:2d}: cost {costs[i]:.6f}  iterations {hist['iterations'][i]}  "
+              f"solve_ok {hist['solve_ok'][i]}  base_z {xs[i, 2]:.6f}")
+    base_z = float(xT[2])
+    its = sum(hist["iterations"]) / N_STEPS
+    print(f"exact ({smi_line}): {run_s * 1e3 / N_STEPS:.2f} ms per MPC step (host clock, one run "
+          f"of {N_STEPS} steps), {its:.3f} iterations per step; final cost {costs[-1]:.6f}, final "
+          f"base_z {base_z:.6f}; launches {counts}; peak memory {peak / 2**20:.1f} MiB")
+    print(f"JAX package's run of the same steps, CPU float32 (information; tools/exact_anchor.py): "
+          f"{EXACT_ANCHOR}")
+    if not (np.isfinite(xs).all() and bool(torch.isfinite(xT).all())):
+        fail("exact: non-finite state in the closed loop")
+    if not all(hist["solve_ok"]):
+        fail(f"exact: solve_ok false at steps "
+             f"{[i for i, ok in enumerate(hist['solve_ok']) if not ok]}")
+    if not (1.0 < xs[:, 2].min() and xs[:, 2].max() < 1.1 and 1.0 < base_z < 1.1):
+        fail(f"exact: base_z left (1.0, 1.1): min {xs[:, 2].min()}, max {xs[:, 2].max()}, "
+             f"final {base_z}")
+    if not costs[-1] < costs[0]:
+        fail(f"exact: last cost {costs[-1]} is not below the first {costs[0]}")
+    for name in ("rollout", "linesearch"):
+        if counts[name] < 1:
+            fail(f"exact: {name} was not launched")
+    for name in report:
+        report[name]["launches_by_path"]["exact"] = counts[name]
+
+    # One iteration's derivatives at the last step's window, beside the flagship's modes.
+    win = extract_window(refs, N_STEPS - 1, cfg.N)
+    ub = hist["u"][-1][None].repeat(cfg.N, 1).contiguous()
+    xb = solver.rollout(m, cfg, hist["x"][-1], ub, plan=plan)
+    shipped = dataclasses.replace(cfg, linearization="structured_frozen_mass")
+    torch.cuda.reset_peak_memory_stats()
+    breakdown({
+        "linearize (ad)": lambda: solver.linearize(m, cfg, xb, ub),
+        "linearize (structured_frozen_mass)": lambda: solver.linearize(m, shipped, xb, ub),
+        "quadraticize (exact)": lambda: quadraticize(m, cp, win, xb, ub),
+        "quadraticize (gn)": lambda: quadraticize(m, cp, win, xb, ub, hess_mode="gn"),
+    }, f"N={cfg.N}")
+    print(f"  peak memory of the breakdown: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+    # (b) every other new mode once, float64, at one nominal
+    app = load_config(os.path.join(ROOT, "config.yaml"))
+    app.engine.update(dtype="float64", rollout_backend="xla", ls_backend="xla",
+                      line_search="first_accept")
+    p64 = scenarios.exact_standing(app)
+    m64, cp64, N = p64.model, p64.cp, p64.cfg.N
+    x0 = standing_state(m64)
+    g = torch.Generator().manual_seed(0)
+    us = engine.gravity_comp(m64, x0)[None] + 0.1 * torch.randn(
+        (N, m64.nu), generator=g, dtype=torch.float64).to(m64.device)
+    xb64 = solver.rollout(m64, p64.cfg, x0, us)
+    lin = lambda mode, **kw: solver.linearize(m64, dataclasses.replace(
+        p64.cfg, linearization=mode, **kw), xb64, us)
+    win64 = extract_window(p64.refs, 0, N)
+    diff = lambda a, b: float((a - b).abs().max())
+    A, B = lin("ad")
+    A_fz, B_fz = lin("ad_frozen_mass")
+    got = {"ad_frozen_mass vs ad, B": diff(B_fz, B), "ad_frozen_mass vs ad, A": diff(A_fz, A)}
+    # "fd" against "ad" in the JAX test's own setting (tests/test_linearize_fd.py:12-24:
+    # load_h1's contact, the standing state at gravity compensation, N=3, fd_eps 1e-6).
+    # Forward differences carry a truncation error ∝ fd_eps that grows along a horizon
+    # as the robot moves (1.2e-2 at the 25th knot of that setting at 1e-6; 4.1e-3 on the
+    # nominal below, where impratio 100 stiffens the stiction; the same recipe in the
+    # reference): at N=25 the gap must shrink tenfold with fd_eps.
+    hm = load_h1(gravity=(0.0, 0.0, -1.0), timestep=0.02, dtype=torch.float64)
+    hx0 = standing_state(hm)
+    hus = engine.gravity_comp(hm, hx0)[None].repeat(3, 1)
+    hcfg = dataclasses.replace(p64.cfg, linearization="ad", N=3)
+    hxs = solver.rollout(hm, hcfg, hx0, hus)
+    hA, hB = solver.linearize(hm, hcfg, hxs, hus)
+    hA_fd, hB_fd = solver.linearize(hm, dataclasses.replace(hcfg, linearization="fd",
+                                                            fd_eps=1e-6), hxs, hus)
+    got["fd vs ad"] = max(diff(hA_fd, hA), diff(hB_fd, hB))
+    gaps = {}
+    for eps in (1e-5, 1e-6, 1e-7):
+        A_fd, B_fd = lin("fd", fd_eps=eps)
+        gaps[eps] = max(diff(A_fd, A), diff(B_fd, B))
+    got["fd truncation, gap(1e-6) / gap(1e-7)"] = gaps[1e-6] / gaps[1e-7]
+    print(f"  fd vs ad on the main path's model, by fd_eps: "
+          + ", ".join(f"{e:g}: {g:.3e}" for e, g in gaps.items()))
+    for mode in ("ad", "structured", "structured_frozen_mass"):
+        full = (A, B) if mode == "ad" else lin(mode)
+        chunked = lin(mode, lin_chunk=16)
+        got[f"lin_chunk 16 ({mode})"] = max(diff(chunked[0], full[0]), diff(chunked[1], full[1]))
+    q0 = quadraticize(m64, cp64, win64, xb64, us)
+    qc = quadraticize(m64, cp64, win64, xb64, us, hess_chunk=16)
+    qg = quadraticize(m64, cp64, win64, xb64, us, hess_mode="gn")
+    for f in ("lxx", "lx", "luu"):
+        got[f"hess_chunk 16, {f}"] = diff(getattr(qc, f), getattr(q0, f))
+    for f in ("lx", "lu", "luu"):
+        got[f"gn vs exact, {f}"] = diff(getattr(qg, f), getattr(q0, f))
+    full_cost = float(trajectory_cost(m64, cp64, win64, xb64, us, mode="full"))
+    by_term = {}
+    for t in range(N + 1):
+        x = xb64[t]
+        w = (win64.x[t], win64.com[t], win64.com_vel[t], win64.ee_pos[t], win64.stance[t])
+        parts = dict(tracking=terms.tracking_cost(cp64, x, w[0], *(
+            (us[t], win64.u[t]) if t < N else ()), terminal=t == N, model=m64),
+            com=terms.com_cost(m64, cp64, x, w[1]),
+            ee_pos=terms.ee_pos_cost(m64, cp64, x, w[3], w[4]),
+            ee_vel=terms.ee_vel_cost(m64, cp64, x, w[4]), upright=terms.upright_cost(cp64, x),
+            balance=terms.balance_cost(m64, cp64, x, w[3], w[4]),
+            joint_limit=terms.joint_limit_cost(m64, cp64, x))
+        if t < N:
+            parts.update(com_vel=terms.com_vel_cost(m64, cp64, x, w[2]),
+                         torque_limit=terms.torque_limit_cost(m64, cp64, us[t]))
+        for k, v in parts.items():
+            by_term[k] = by_term.get(k, 0.0) + float(v)
+    got["trajectory_cost full vs its terms (relative)"] = (
+        abs(full_cost - sum(by_term.values())) / max(1.0, abs(full_cost)))
+    print(f"exact (b), float64 on the card, H1, N={N}: full cost {full_cost:.9f} = "
+          + ", ".join(f"{k} {v:.6g}" for k, v in by_term.items()))
+    for k, v in got.items():
+        lo, hi = EXACT_BARS[k]
+        print(f"  {k}: {v:.3e} (bar {f'{lo} to {hi}' if lo else hi})")
+    bad = [k for k, v in got.items() if not EXACT_BARS[k][0] <= v <= EXACT_BARS[k][1]]
+    if bad:
+        fail(f"exact (b): {bad} beyond their bars ({[got[k] for k in bad]})")
+
+    # One float32 solve with cost_mode "full", K1-K3 through the plan.
+    fcfg = dataclasses.replace(cfg, cost_mode="full")
+    x0f = standing_state(m)
+    u0 = engine.gravity_comp(m, x0f)[None].repeat(cfg.N, 1)
+    wf = extract_window(refs, 0, cfg.N)
+    c0 = float(trajectory_cost(m, cp, wf, solver.rollout(m, fcfg, x0f, u0, plan=plan), u0,
+                               mode="full"))
+    t1 = time.perf_counter()
+    sol = solver.solve(m, cp, fcfg, x0f, wf, u0, plan=plan)
+    torch.cuda.synchronize()
+    print(f"exact, cost_mode 'full' (float32): success {sol.success}, iterations {sol.iterations},"
+          f" cost {c0:.6f} -> {float(sol.cost):.6f} in {(time.perf_counter() - t1) * 1e3:.1f} ms")
+    if not (sol.success and bool(torch.isfinite(sol.cost)) and float(sol.cost) < c0):
+        fail(f"exact: the cost_mode 'full' solve failed (success {sol.success}, cost "
+             f"{float(sol.cost)} from {c0})")
 
 
 def main() -> int:
@@ -991,6 +1202,11 @@ def main() -> int:
     t0 = time.perf_counter()
     batched_phase(report, smi_line, reset_counts, read_counts)
     phase("batched", t0)
+
+    # ---- 9. the reference's exact-derivative solver ----------------------------
+    t0 = time.perf_counter()
+    exact_phase(report, smi_line, reset_counts, read_counts)
+    phase("exact", t0)
 
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

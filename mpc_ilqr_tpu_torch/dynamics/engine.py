@@ -350,7 +350,7 @@ def step(model: RobotModel, x: torch.Tensor, u: torch.Tensor, n_substeps: int = 
 
 
 def step_and_jac(model: RobotModel, x: torch.Tensor, u: torch.Tensor,
-                 n_substeps: int = 1, frozen_mass: bool = False):
+                 n_substeps: int = 1, frozen_mass: bool = False, q_chunk: int = 0):
     """(x_next, A, B): the step Jacobians, grouped by input block.
 
       - u-block: tau is linear in u and the lhs does not depend on u, so
@@ -359,7 +359,8 @@ def step_and_jac(model: RobotModel, x: torch.Tensor, u: torch.Tensor,
         the nv tangents run only through the RNEA bias and the stiction
         viscosity c(v), sharing the one factorization of L.
       - q-block: a full jvp through the substep for the nq directions
-        (frozen_mass honoured as in `step`).
+        (frozen_mass honoured as in `step`), in groups of q_chunk one
+        after another when 0 < q_chunk < nq (cfg.lin_chunk).
     """
     h = model.timestep / n_substeps
     nq, nv = model.nq, model.nv
@@ -406,7 +407,9 @@ def step_and_jac(model: RobotModel, x: torch.Tensor, u: torch.Tensor,
 
         # q-block: full jvp, nq directions.
         f_q = lambda x_: step(m_sub, x_, u, 1, frozen_mass)
-        dq_full = vmap(lambda e: jvp(f_q, (x,), (e,))[1])(E_q)  # (nq, nx)
+        c = q_chunk if 0 < q_chunk < nq else nq
+        dq_full = torch.cat([vmap(lambda e: jvp(f_q, (x,), (e,))[1])(E)
+                             for E in E_q.split(c)])  # (nq, nx)
 
         # ∂q'/∂v': the q-rows of the v and u columns.
         g = lambda w_: integrate_position(model, q, w_, h)

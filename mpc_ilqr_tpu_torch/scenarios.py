@@ -8,6 +8,9 @@
                           (bench_suite.py:177-229, BASELINE config 3)
     fleet                 1024 domain-randomised H1s, one fleet MPC step in
                           chunks of 128 (bench_suite.py:339-403, BASELINE config 5)
+    exact_standing        the standing flagship on the reference's own
+                          derivative model, `--lin ad --quad exact`
+                          (bench_suite.py:124-134, :446-451)
 
 No timing and no command line here: chip_smoke.py drives and times them.
 """
@@ -44,6 +47,23 @@ def _standing(app: AppConfig = None, device=None, **overrides) -> runner.Problem
     app.v_ref_path = "data/v_standing.csv"
     app.contact_schedule_path = "data/contact_standing.csv"
     app.engine["rollout_backend"] = app.engine["ls_backend"] = "xla"
+    prob = runner.setup(app, device=device)
+    return prob._replace(cfg=dataclasses.replace(prob.cfg, **overrides))
+
+
+def exact_standing(app: AppConfig = None, device=None, **overrides) -> runner.Problem:
+    """bench_suite.py:_setup(standing=True) with `--lin ad --quad exact`:
+    config.yaml (a copy of `app` when given) with the standing references
+    and the reference's default derivatives, linearization "ad" (jvp over
+    the nx+nu directions) and quad_mode "exact" (the Hessian of the full
+    stage cost); the rollout kernels stay as config.yaml asks (K1-K3
+    through the StepPlan); then the overrides."""
+    app = copy.deepcopy(app) if app is not None else load_config(os.path.join(ROOT, "config.yaml"))
+    app.q_ref_path = "data/q_standing.csv"
+    app.v_ref_path = "data/v_standing.csv"
+    app.contact_schedule_path = "data/contact_standing.csv"
+    app.engine["linearization"] = "ad"
+    app.engine["quad_mode"] = "exact"
     prob = runner.setup(app, device=device)
     return prob._replace(cfg=dataclasses.replace(prob.cfg, **overrides))
 

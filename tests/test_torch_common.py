@@ -21,6 +21,13 @@ from mpc_ilqr_tpu_torch.costs.params import WEIGHT_FIELDS
 from mpc_ilqr_tpu_torch.costs.references import TRACK_FIELDS
 from mpc_ilqr_tpu_torch.models.robot import ARRAY_FIELDS, STATIC_FIELDS
 
+# One intra-op thread for the port's CPU ops in every test process: the suite
+# runs six xdist workers on eight cores, and the port's many small ops gain
+# nothing from a thread pool per worker, while eight threads per worker
+# oversubscribe the cores the reference's compiles need (CHANGES.md has the
+# timings). Every worker imports this module when it collects the test files.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "mpc_ilqr_tpu_torch")
 FORBIDDEN = ("jax", "flax", "yaml", "mujoco", "mpc_ilqr_tpu")
@@ -135,6 +142,12 @@ state, u, diag_lh = controller.step_once(lh.model, lh.cp, lh.cfg, lh.refs,
                                          controller.init_state(lh.model, lh.cfg),
                                          standing_state(lh.model), plan=lh.plan)
 assert diag_lh.solve_ok and bool(u.isfinite().all()), diag_lh
+ex = scenarios.exact_standing(device="cpu", N=3)
+assert (ex.cfg.linearization, ex.cfg.quad_mode) == ("ad", "exact") and ex.plan is not None
+state, u, diag_ex = controller.step_once(ex.model, ex.cp, ex.cfg, ex.refs,
+                                         controller.init_state(ex.model, ex.cfg),
+                                         standing_state(ex.model), plan=ex.plan)
+assert diag_ex.solve_ok and bool(u.isfinite().all()), diag_ex
 assert not any(m.split(".")[0] in {FORBIDDEN!r} for m in sys.modules), "reference stack leaked"
 print("POISONED_OK", prob.cfg.N, diag.iterations, float(diag.cost), lh.cfg.N)
 """
@@ -145,8 +158,9 @@ def test_port_runs_with_reference_stack_poisoned():
     mujoco and mpc_ilqr_tpu unimportable, import chip_smoke and the port
     with its runtime modules (native I/O, logging, profiling, checkpoints,
     the CLI), then set up the flagship from config.yaml and take one MPC
-    step on CPU, and one long-horizon step with backward="pallas" (K4's
-    plain version) at N=6."""
+    step on CPU, one long-horizon step with backward="pallas" (K4's
+    plain version) at N=6, and one step of scenarios.exact_standing ("ad"
+    + "exact") at N=3."""
     code = POISONED_RUN.format(FORBIDDEN=set(FORBIDDEN), ROOT=ROOT,
                                config=os.path.join(ROOT, "config.yaml"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -1,7 +1,11 @@
 """Port parity, float64: cost quadratics, trajectory cost, linearization,
 Riccati backward pass and line search of mpc_ilqr_tpu_torch against
-mpc_ilqr_tpu on the standing window of the flagship."""
+mpc_ilqr_tpu on the standing window of the flagship. The reference's
+nominal graph, its line searches and its GN quadratics on the clamped
+window are tests/torch_fixtures/nominal_h1.npz (tools/port_parity_fixture.py:
+compiled once, on the same inputs)."""
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -10,15 +14,15 @@ import pytest
 import torch
 
 from mpc_ilqr_tpu.costs.quadratics import CostQuadratics as JQuad
-from mpc_ilqr_tpu.costs.quadratics import quadraticize, trajectory_cost
 from mpc_ilqr_tpu.costs.references import extract_window
 from mpc_ilqr_tpu.ilqr import solver as jsol
 from mpc_ilqr_tpu_torch.costs import quadratics as tquad
 from mpc_ilqr_tpu_torch.costs.references import extract_window as t_extract_window
 from mpc_ilqr_tpu_torch.ilqr import solver as tsol
-from test_torch_common import port_cost_params, port_model, port_refs, standing_problem
+from test_torch_common import ROOT, port_cost_params, port_model, port_refs, standing_problem
 
 N = 5
+NOMINAL_FIXTURE = os.path.join(ROOT, "tests", "torch_fixtures", "nominal_h1.npz")
 
 
 @pytest.fixture(scope="module")
@@ -36,21 +40,16 @@ def prob():
 @pytest.fixture(scope="module")
 def nominal(prob):
     """The reference's nominal rollout at the random controls, its A/B, GN
-    quadratics, backward pass and cost on the window at t=0 (one jit)."""
-    jm, cp, refs, tm, tcp, trefs, xs, us = prob
-    win = extract_window(refs, 0, N)
-    cfg = jsol.ILQRConfig(N=N, linearization="structured_frozen_mass", quad_mode="gn")
-
-    @jax.jit
-    def ref(x0, ubar):
-        xbar = jsol.rollout(jm, cfg, x0, ubar)
-        A, B = jsol.linearize(jm, cfg, xbar, ubar)
-        q = quadraticize(jm, cp, win, xbar, ubar, hess_mode="gn")
-        K, kff = jsol.backward_pass(A, B, q, jnp.asarray(1e-6), 1e-4)
-        return xbar, A, B, q, K, kff, trajectory_cost(jm, cp, win, xbar, ubar)
-
-    out = ref(jnp.asarray(xs[0]), jnp.asarray(us))
-    return jax.tree.map(np.asarray, out)
+    quadratics, backward pass and cost on the window at t=0:
+    tests/torch_fixtures/nominal_h1.npz (tools/port_parity_fixture.py, the
+    same inputs in one jit)."""
+    xs, us = prob[6], prob[7]
+    fx = np.load(NOMINAL_FIXTURE)
+    np.testing.assert_array_equal(fx["xs"], xs)  # the fixture's inputs are this module's
+    np.testing.assert_array_equal(fx["us"], us)
+    q = JQuad(*(fx[f"q_{f}"] for f in JQuad._fields))
+    return tuple(fx[k] for k in ("xbar", "A", "B")) + (q,) + tuple(
+        fx[k] for k in ("K", "kff", "cost"))
 
 
 def test_quadraticize_gn_at_the_nominal(prob, nominal):
@@ -68,8 +67,8 @@ def test_quadraticize_gn_on_a_clamped_window(prob):
     win, twin = extract_window(refs, 196, N), t_extract_window(trefs, 196, N)
     for f in ("x", "u", "com", "com_vel", "ee_pos", "stance"):
         np.testing.assert_array_equal(getattr(twin, f).numpy(), np.asarray(getattr(win, f)))
-    q = jax.jit(lambda a, b: quadraticize(jm, cp, win, a, b, hess_mode="gn"))(
-        jnp.asarray(xs), jnp.asarray(us))
+    fx = np.load(NOMINAL_FIXTURE)  # the reference's GN quadratics on this window
+    q = [fx[f"q196_{f}"] for f in JQuad._fields]
     tq = tquad.quadraticize_gn(tm, tcp, twin, torch.tensor(xs), torch.tensor(us))
     for name, a, b in zip(JQuad._fields, q, tq):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=1e-9, err_msg=name)
@@ -145,11 +144,9 @@ def test_line_search_selects_like_reference(prob, nominal, mode):
     feedback law of the reference's backward pass at the nominal."""
     jm, cp, refs, tm, tcp, trefs, xs, us = prob
     xbar, K, kff, base = nominal[0], nominal[4], nominal[5], nominal[6]
-    win, twin = extract_window(refs, 0, N), t_extract_window(trefs, 0, N)
-    cfg_j = jsol.ILQRConfig(N=N, line_search=mode)
-    ok, xs_j, us_j, c_j, best_j = jax.jit(
-        lambda *a: jsol.line_search(jm, cp, cfg_j, win, *a))(
-        *(jnp.asarray(a) for a in (xs[0], xbar, us, K, kff, base)))
+    twin = t_extract_window(trefs, 0, N)
+    fx = np.load(NOMINAL_FIXTURE)  # the reference's line search on these inputs
+    ok, xs_j, us_j, c_j, best_j = (fx[f"ls_{mode}_{k}"] for k in ("ok", "xs", "us", "cost", "best"))
     cfg_t = tsol.ILQRConfig(N=N, line_search=mode, rollout_backend="pallas",
                             ls_backend="pallas_batched")
     ok_t, xs_t, us_t, c_t, best_t = tsol.line_search(
@@ -166,15 +163,18 @@ SUPPORTED = dict(linearization="structured_frozen_mass", quad_mode="gn")  # conf
 
 def test_unported_solver_options_raise():
     """Each unported value raises for its own field on an otherwise
-    supported config."""
+    supported config; the reference's exact-derivative modes, ported since,
+    pass."""
     ok = tsol.ILQRConfig(**SUPPORTED)
     tsol.check_config(ok)
-    for field, value in (("quad_mode", "exact"), ("backward", "assoc"),
-                         ("linearization", "ad"), ("cost_mode", "full")):
-        with pytest.raises(NotImplementedError, match=f"ILQRConfig.{field}="):
-            tsol.check_config(dataclasses.replace(ok, **{field: value}))
-    with pytest.raises(NotImplementedError, match="ILQRConfig.linearization="):
-        tsol.linearize(None, dataclasses.replace(ok, linearization="fd"), None, None)
+    for field, value in (("quad_mode", "exact"), ("linearization", "ad"),
+                         ("linearization", "ad_frozen_mass"), ("linearization", "fd"),
+                         ("cost_mode", "full")):
+        tsol.check_config(dataclasses.replace(ok, **{field: value}))
+    with pytest.raises(NotImplementedError, match="ILQRConfig.backward="):
+        tsol.check_config(dataclasses.replace(ok, backward="assoc"))
+    with pytest.raises(ValueError, match="linearization="):
+        tsol.linearize(None, dataclasses.replace(ok, linearization="jacrev"), None, None)
 
 
 SHARED_FIELDS = sorted({f.name for f in dataclasses.fields(tsol.ILQRConfig)}

@@ -495,3 +495,59 @@ def test_masked_spd_solve_on_the_card_equals_the_cpu(card):
     assert got.device.type == "cuda"
     assert float((got.cpu() - want).abs().max()) <= ATOL
     assert float((A @ want - b).abs().max()) <= ATOL
+
+
+def _exact_problem64(device):
+    """scenarios.exact_standing ("ad" + "exact") in float64 on the plain
+    chains (the kernels take float32) with first_accept, N=6."""
+    from mpc_ilqr_tpu_torch import scenarios
+
+    app = _standing_app()
+    app.engine.update(dtype="float64", rollout_backend="xla", ls_backend="xla",
+                      line_search="first_accept")
+    return scenarios.exact_standing(app, device=device, N=6, max_iterations=3)
+
+
+def test_exact_solve_on_the_card_equals_the_cpu_in_float64(card):
+    """One solve with linearization "ad", quad_mode "exact" and cost_mode
+    "full" from gravity compensation at the standing state: the card's
+    iterations, success, cost and trajectory against the CPU's, float64."""
+    import dataclasses
+
+    from mpc_ilqr_tpu_torch.costs.references import extract_window
+    from mpc_ilqr_tpu_torch.dynamics import engine
+    from mpc_ilqr_tpu_torch.ilqr import solver
+    from mpc_ilqr_tpu_torch.models.robot import standing_state
+
+    sols = []
+    for device in ("cuda", "cpu"):
+        p = _exact_problem64(device)
+        cfg = dataclasses.replace(p.cfg, cost_mode="full")
+        x0 = standing_state(p.model)
+        u0 = engine.gravity_comp(p.model, x0)[None].repeat(cfg.N, 1)
+        sols.append(solver.solve(p.model, p.cp, cfg, x0, extract_window(p.refs, 0, cfg.N), u0))
+    got, want = sols
+    assert got.cost.device.type == "cuda" and got.success and want.success
+    assert got.iterations == want.iterations
+    assert abs(float(got.cost) - float(want.cost)) <= 1e-9 * max(1.0, abs(float(want.cost)))
+    for f in ("xbar", "ubar", "K"):
+        assert float((getattr(got, f).cpu() - getattr(want, f)).abs().max()) <= 1e-8, f
+
+
+def test_fd_against_ad_on_the_card(card):
+    """tests/test_linearize_fd.py:12-24 on the card: load_h1's contact, the
+    standing state at gravity compensation, N=3, float64; "fd" (fd_eps
+    1e-6) within 5e-4 of "ad"."""
+    from mpc_ilqr_tpu_torch.dynamics import engine
+    from mpc_ilqr_tpu_torch.ilqr import solver
+    from mpc_ilqr_tpu_torch.models.robot import standing_state
+
+    m = card[0].to(dtype=torch.float64)
+    cfg = solver.ILQRConfig(N=3, linearization="ad")
+    x0 = standing_state(m)
+    us = engine.gravity_comp(m, x0)[None].repeat(3, 1)
+    xs = solver.rollout(m, cfg, x0, us)
+    A, B = solver.linearize(m, cfg, xs, us)
+    Af, Bf = solver.linearize(m, solver.ILQRConfig(N=3, linearization="fd", fd_eps=1e-6), xs, us)
+    assert A.device.type == "cuda" and bool(torch.isfinite(A).all())
+    assert float((Af - A).abs().max()) <= 5e-4 and float((Bf - B).abs().max()) <= 5e-4

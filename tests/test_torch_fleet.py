@@ -135,12 +135,14 @@ def test_vmap_safe_matches_reference(line_search, outer_loop):
 
 
 def test_unported_chunking_and_kernel_backends_raise(h1):
-    """lin_chunk / hess_chunk are not ported; the batched path refuses K4 and
-    device_solve any kernel backend (it takes no StepPlan)."""
+    """lin_chunk / hess_chunk take any size >= 0 and raise on a negative
+    one; the batched path refuses K4 and device_solve any kernel backend
+    (it takes no StepPlan)."""
     ok = tsol.ILQRConfig(**SHIPPED)
     for field in ("lin_chunk", "hess_chunk"):
-        with pytest.raises(NotImplementedError, match=f"ILQRConfig.{field}="):
-            tsol.check_config(dataclasses.replace(ok, **{field: 8}))
+        tsol.check_config(dataclasses.replace(ok, **{field: 8}))
+        with pytest.raises(ValueError, match=f"ILQRConfig.{field} must be >= 0"):
+            tsol.check_config(dataclasses.replace(ok, **{field: -1}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsol.batched_config(dataclasses.replace(ok, backward="pallas"))
     cfg = tsol.batched_config(dataclasses.replace(ok, rollout_backend="pallas",

@@ -40,11 +40,26 @@ def test_native_library_builds_under_build_not_native():
     assert tnative.build() == path  # cached by hash: no second build
 
 
+@pytest.fixture(scope="module")
+def jnative(tmp_path_factory):
+    """The JAX package's native reader, its library built by the package's
+    own loader into a private path. The loader builds native/libmpcio.so
+    in place, so a test worker that loads it while another worker's g++ is
+    still writing it gets no library, falls back to np.loadtxt for the rest
+    of the process, and that cannot read the contact files' header row."""
+    from mpc_ilqr_tpu.io import native as jn
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jn, "_LIB_PATH", str(tmp_path_factory.mktemp("jnative") / "libmpcio.so"))
+        mp.setattr(jn, "_lib", None)
+        mp.setattr(jn, "_tried", False)
+        assert jn.available()
+        yield jn
+
+
 @pytest.mark.parametrize("skip", [0, 1])
 @pytest.mark.parametrize("name", DATA)
-def test_read_csv_matrix_matches_reference_bit_for_bit(name, skip):
-    from mpc_ilqr_tpu.io import native as jnative
-
+def test_read_csv_matrix_matches_reference_bit_for_bit(name, skip, jnative):
     path = os.path.join(ROOT, "data", name)
     got, want = tnative.read_csv_matrix(path, skip), jnative.read_csv_matrix(path, skip)
     assert got.dtype == want.dtype == np.float64 and got.shape == want.shape

@@ -3,9 +3,7 @@ tools/bench_suite.py:275-336; the tuned solver knobs (outer_loop "scan",
 linearize_every) solve as the reference's do; and the amortized TV-LQR loop
 with K4 runs like the reference's `_tvlqr_amortized_loop`."""
 import dataclasses
-import functools
 import os
-import sys
 import types
 
 import jax
@@ -137,22 +135,17 @@ def test_amortized_long_horizon_loop_matches_reference(jax_long_horizon):
     interpret mode, the port's plain K4) cut to N=6, solving every 2nd of 4
     control steps, float32. Equal solve_ok and t_idx; x 1e-5, u 5e-4, cost
     rtol 1e-4 — the tolerances and reasons of
-    test_torch_slice.py::test_closed_loop_matches_reference."""
+    test_torch_slice.py::test_closed_loop_matches_reference. The reference's
+    `_tvlqr_amortized_loop` run is tests/torch_fixtures/long_horizon_h1.npz
+    (tools/port_parity_fixture.py: the same set-up, compiled once)."""
     from mpc_ilqr_tpu.models.robot import standing_state
-    from mpc_ilqr_tpu.mpc import controller as jctl
-
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
-    from bench_suite import _tvlqr_amortized_loop
 
     N, k, n_steps = 6, 2, 4
     jprob = jax_long_horizon
-    jcfg = dataclasses.replace(jprob.cfg, **{**TUNED, "max_iterations": 1}, backward="pallas",
-                               N=N)
-    jp = types.SimpleNamespace(model=jprob.model, cp=jprob.cp, cfg=jcfg, refs=jprob.refs,
-                               plan=None)
     x0 = standing_state(jprob.model)
-    run = jax.jit(functools.partial(_tvlqr_amortized_loop(jp, k), n_steps=n_steps))
-    jstate, jxT, jh = run(jprob.refs, jctl.init_state(jprob.model, jcfg), x0)
+    fx = np.load(os.path.join(ROOT, "tests", "torch_fixtures", "long_horizon_h1.npz"))
+    jh = {f: fx[f] for f in ("solve_ok", "cost")}
+    jxT = fx["xT"]
 
     prob, _ = scenarios.long_horizon(tuned=True, iters=1, solve_every=k, device="cpu")
     f32 = torch.float32
@@ -166,12 +159,10 @@ def test_amortized_long_horizon_loop_matches_reference(jax_long_horizon):
 
     assert th["solve_ok"] == np.asarray(jh["solve_ok"]).tolist() == [True] * (n_steps // k)
     assert th["iterations"] == [1] * (n_steps // k)
-    assert tstate.t_idx == int(jstate.t_idx) == n_steps
+    assert tstate.t_idx == int(fx["t_idx"]) == n_steps
     assert th["x"].shape == (n_steps, tm.nx) and th["u"].shape == (n_steps, tm.nu)
     np.testing.assert_allclose(txT.numpy(), np.asarray(jxT), rtol=0, atol=1e-5)
-    np.testing.assert_allclose(tstate.prev_xbar.numpy(), np.asarray(jstate.prev_xbar), rtol=0,
-                               atol=1e-5)
-    np.testing.assert_allclose(tstate.prev_ubar.numpy(), np.asarray(jstate.prev_ubar), rtol=0,
-                               atol=5e-4)
+    np.testing.assert_allclose(tstate.prev_xbar.numpy(), fx["prev_xbar"], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tstate.prev_ubar.numpy(), fx["prev_ubar"], rtol=0, atol=5e-4)
     np.testing.assert_allclose(th["cost"].numpy(), np.asarray(jh["cost"]), rtol=1e-4)
     assert 1.0 < float(txT[2]) < 1.1

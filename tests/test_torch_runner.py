@@ -14,7 +14,8 @@ their float64 runs, same code otherwise, by 5.5e-14, 1.7e-12 and 3.6e-16 —
 so the float32 gap is round-off, and the bars sit ~10x above it, as the
 slice test's do. The logs' headers must be byte-identical; their numeric
 columns (all but solve_time_ms) are held at the same tolerances, the
-reference rows (x_ref, u_ref) exactly.
+reference rows (x_ref, u_ref) exactly. The JAX package's walking run and its
+logs are tests/torch_fixtures/walking_h1.npz (tools/port_parity_fixture.py).
 """
 import dataclasses
 import os
@@ -50,32 +51,35 @@ def _logs(root):
     return out
 
 
+WALKING_FIXTURE = os.path.join(ROOT, "tests", "torch_fixtures", "walking_h1.npz")
+
+
 @pytest.fixture(scope="module")
 def walking_runs(tmp_path_factory):
-    """Both packages' run_simulation on the walking config, each writing its
-    logs under its own directory; the JAX side compiles once here."""
-    from mpc_ilqr_tpu.io import logging as jiolog
-    from mpc_ilqr_tpu.io.config import load_config as j_load_config
-    from mpc_ilqr_tpu.mpc import runner as jrunner
-
-    runs = {}
-    jprob = jrunner.setup(j_load_config(os.path.join(ROOT, "config.yaml")))
-    jprob = jprob._replace(cfg=dataclasses.replace(jprob.cfg, **SMALL))
+    """Both packages' run_simulation on the walking config: the port's here,
+    writing its logs under its own directory; the JAX package's from
+    tests/torch_fixtures/walking_h1.npz (tools/port_parity_fixture.py: the
+    same set-up with the package's own loggers, compiled once), with its
+    logs' headers and rows."""
+    fx = np.load(WALKING_FIXTURE)
+    runs = {"jax": dict(
+        hist={k: list(fx[k]) if k in ("x", "u") else fx[k].tolist()
+              for k in map(str, fx["hist_keys"])},
+        t_idx=int(fx["t_idx"]), solve_ok=fx["solve_ok"].tolist(),
+        logs=[(str(fx[f"{k}_header"]), fx[f"{k}_rows"]) for k in ("log", "q", "u")])}
     tprob = trunner.setup(load_config(os.path.join(ROOT, "config.yaml")), device="cpu")
     tprob = tprob._replace(cfg=dataclasses.replace(tprob.cfg, **SMALL))
-    assert tprob.refs.length == jprob.refs.length == 400  # the walking references
-    for side, prob, iolog, runner, waits in (("jax", jprob, jiolog, jrunner, jax),
-                                              ("port", tprob, tiolog, trunner, trunner)):
-        d = str(tmp_path_factory.mktemp(side))
-        m = prob.model
-        oks = []
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(waits, "block_until_ready", recording_waits(waits, oks))
-            hist, state = runner.run_simulation(
-                prob, sim_steps=STEPS, verbose=False,
-                step_logger=iolog.StepLogger(os.path.join(d, "logs", "mpc_log.csv"), m.nx, m.nu),
-                traj_logger=iolog.OptimalTrajectoryLogger(os.path.join(d, "results"), m.nq, m.nu))
-        runs[side] = dict(hist=hist, state=state, solve_ok=oks, dir=d)
+    assert tprob.refs.length == int(fx["refs_length"]) == 400  # the walking references
+    d = str(tmp_path_factory.mktemp("port"))
+    m = tprob.model
+    oks = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(trunner, "block_until_ready", recording_waits(trunner, oks))
+        hist, state = trunner.run_simulation(
+            tprob, sim_steps=STEPS, verbose=False,
+            step_logger=tiolog.StepLogger(os.path.join(d, "logs", "mpc_log.csv"), m.nx, m.nu),
+            traj_logger=tiolog.OptimalTrajectoryLogger(os.path.join(d, "results"), m.nq, m.nu))
+    runs["port"] = dict(hist=hist, t_idx=state.t_idx, solve_ok=oks, logs=_logs(d))
     return runs
 
 
@@ -92,12 +96,12 @@ def test_run_simulation_matches_reference_on_walking(walking_runs):
     np.testing.assert_allclose(np.stack(th["u"]), np.stack(jh["u"]), rtol=0, atol=U_ATOL)
     np.testing.assert_allclose(th["cost"], jh["cost"], rtol=COST_RTOL)
     assert th["x"][0].dtype == jh["x"][0].dtype == np.float32
-    assert t["state"].t_idx == int(j["state"].t_idx)
+    assert t["t_idx"] == j["t_idx"]
 
 
 def test_run_simulation_logs_match_reference(walking_runs):
-    (jh, js), (jqh, jq), (juh, ju) = _logs(walking_runs["jax"]["dir"])
-    (th, ts), (tqh, tq), (tuh, tu) = _logs(walking_runs["port"]["dir"])
+    (jh, js), (jqh, jq), (juh, ju) = walking_runs["jax"]["logs"]
+    (th, ts), (tqh, tq), (tuh, tu) = walking_runs["port"]["logs"]
     assert (th, tqh, tuh) == (jh, jqh, juh)
     assert ts.shape == js.shape == (STEPS, 4 + 2 * (51 + 19))
     cols = jh.split(",")

@@ -1,12 +1,10 @@
 """The slice as a whole: three MPC steps of the port's run_closed_loop
-against the JAX package's, float32, in test_mpc.py's small setting (H1,
-N=6, max_iterations=3) with the shipped solver numerics
+against the JAX package's (a committed fixture), float32, in test_mpc.py's
+small setting (H1, N=6, max_iterations=3) with the shipped solver numerics
 (structured_frozen_mass + gn + cascade); plus the set-up and kernel gate."""
 import dataclasses
-import functools
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,24 +33,23 @@ def test_closed_loop_matches_reference():
     float32 round-off carried through three solves. Tolerances: x 1e-5,
     u 5e-4 (|u| ~ 0.7), cost rtol 1e-4 — the two float32 implementations
     factor lhs matrices of condition ~1e4 in different operation orders, so
-    they part at ~1e-7 in x and ~3e-5 in u (measured); the bars leave 10x."""
+    they part at ~1e-7 in x and ~3e-5 in u (measured); the bars leave 10x.
+    The JAX package's run is tests/torch_fixtures/slice_h1.npz
+    (tools/port_parity_fixture.py: the same set-up, compiled once)."""
     from mpc_ilqr_tpu.costs.params import build_cost_params
-    from mpc_ilqr_tpu.ilqr.solver import ILQRConfig
     from mpc_ilqr_tpu.io.config import load_config as j_load_config
     from mpc_ilqr_tpu.io.references import load_reference_set
     from mpc_ilqr_tpu.models.robot import load_h1
     from mpc_ilqr_tpu.models.robot import standing_state as j_standing_state
-    from mpc_ilqr_tpu.mpc import controller as jctl
 
     app = j_load_config(os.path.join(ROOT, "config.yaml"))
     jm = load_h1(gravity=tuple(app.mpc.gravity), timestep=0.02, dtype=jnp.float32)
     cp = build_cost_params(jm, app.mpc.cost_weights, app.mpc.constraints, dtype=jnp.float32)
     refs = load_reference_set(jm, *(os.path.join(ROOT, "data", f) for f in (
         "q_standing.csv", "v_standing.csv", "contact_standing.csv")), dtype=jnp.float32)
-    cfg = ILQRConfig(**SOLVER)
     x0 = j_standing_state(jm)
-    run = jax.jit(functools.partial(jctl.run_closed_loop, jm, cp, cfg, n_steps=3))
-    _, jxT, jh = run(refs, jctl.init_state(jm, cfg), x0)
+    fx = np.load(os.path.join(ROOT, "tests", "torch_fixtures", "slice_h1.npz"))
+    jh, jxT = {k: fx[k] for k in ("x", "u", "cost", "iterations", "solve_ok")}, fx["xT"]
 
     from mpc_ilqr_tpu_torch.ilqr.solver import ILQRConfig as TConfig
 

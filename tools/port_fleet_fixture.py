@@ -18,9 +18,10 @@ engine section, the standing references), with two set-ups cut to size:
          (PRNGKey(0); tools/bench_suite.py:189-203) with 4 alphas at N=4 and
          2 iterations, first_accept
 
-It saves the draws, the configs (as JSON) and every output. Compiling the
-two graphs takes minutes on one core, which is why the suite reads the
-file instead of running them.
+It saves the draws, the configs (as JSON) and every output, stamped with
+the digest of the JAX sources it imported (tools/port_fixture_sources.py).
+Compiling the two graphs takes minutes on one core, which is why the suite
+reads the file instead of running them.
 """
 import json
 import os
@@ -36,6 +37,9 @@ import numpy as np  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+
+from port_fixture_sources import stamp  # noqa: E402
 
 from mpc_ilqr_tpu.costs.params import build_cost_params  # noqa: E402
 from mpc_ilqr_tpu.costs.references import extract_window  # noqa: E402
@@ -104,7 +108,8 @@ def main():
           f"success {np.asarray(sol.success)}")
 
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    np.savez_compressed(OUT, **{k: np.asarray(v) for k, v in out.items()})
+    arrays = {k: np.asarray(v) for k, v in out.items()}
+    np.savez_compressed(OUT, **stamp(arrays, "tools/port_fleet_fixture.py"))
     print(f"wrote {OUT} ({os.path.getsize(OUT)} bytes)")
 
 
