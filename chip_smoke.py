@@ -81,6 +81,26 @@ Phases, each printing its wall seconds:
               each at the JAX test's bar (EXACT_BARS); then one float32
               solve with cost_mode "full", held to success, a finite cost
               and a decrease
+ 10. shards   (a) a world-1 NCCL process group and make_mesh(1) (dp = ls = 1):
+              step_once_sharded for 15 MPC steps of the standing flagship
+              with first_accept and ls_backend pallas_batched (K3 over the
+              shard's alphas, K1 for the nominal), held to the local
+              step_once with the same config to the last bit (iterations,
+              solve_ok, costs, controls, states) and to phase 4's gates;
+              (b) shard_fleet_step on one chunk of 128 instances of
+              scenarios.fleet, held to fleet_step_once on the same chunk
+              (controls equal, the mean cost and the solve_ok count equal);
+              (c) long horizon (a) with backward "assoc", 5 steps, held to
+              phase 6's gates with no K4 launch; ms per control step beside
+              phase 6's; backward_pass_assoc ms per call beside K4 and the
+              backward_pass loop; its K and kff against the float64 serial
+              pass: in float64 on tests/test_ops.py:64-86's 12x5, N=100
+              problem at rtol 1e-8 / atol 1e-9, and in float32 on phase 5's
+              long-horizon inputs, no further than ASSOC_FACTOR times the
+              JAX package's own float32 pass on them (ASSOC_ANCHOR); (d)
+              quat_frames against forward_kinematics on H1 and H1 with
+              hands, float64, at the JAX test's bar (atol 1e-12, rtol 1e-7);
+              then the group is destroyed
 Each path is driven with every launch count set to 0 just before it and read
 just after. Then one `kernels` JSON line and, last, the `ok` JSON line. Any
 failed check exits non-zero before the result lines. Imports only the port,
@@ -141,6 +161,14 @@ EXACT_BARS = {"fd vs ad": (0.0, 5e-4), "fd truncation, gap(1e-6) / gap(1e-7)": (
               "hess_chunk 16, luu": (0.0, 0.0), "gn vs exact, lx": (0.0, 1e-9),
               "gn vs exact, lu": (0.0, 0.0), "gn vs exact, luu": (0.0, 0.0),
               "trajectory_cost full vs its terms (relative)": (0.0, 1e-12)}
+# The JAX package's own float32 backward_pass_assoc on phase 5's long-horizon inputs (made
+# by the port on the CPU), max |out - out64| against the float64 serial pass on the same
+# inputs (tools/assoc_anchor.py). Phase 10 (c) holds the port's associative pass on the
+# card to ASSOC_FACTOR times it: an associative composition rounds worse than the serial
+# pass in float32 (the serial pass reads K 1.245e-2, kff 1.024e-3 there), so K4's bar does
+# not apply.
+ASSOC_ANCHOR = {"K": 0.6526, "kff": 7.513e-4}
+ASSOC_FACTOR = 2.0
 
 
 def fail(msg: str) -> None:
@@ -716,6 +744,246 @@ def exact_phase(report, smi_line, reset_counts, read_counts):
              f"{float(sol.cost)} from {c0})")
 
 
+def shards_phase(report, smi_line, reset_counts, read_counts, ctx):
+    """Phase 10: the sharded line search and fleet step on a world-1 NCCL
+    group, long horizon (a) with the associative Riccati pass, and the
+    quaternion FK; launches recorded in `report` ("sharded_standing",
+    "sharded_fleet", "long_horizon_assoc"). `ctx` carries earlier phases'
+    problem and readings: the standing problem (`standing`), phase 5's
+    long-horizon inputs (`lh_args`, `A`, `B`, `quad`, `reg`, `pd`), their
+    float64 serial gains (`p64`) and K4's distance from them (`k4_err`),
+    and phase 6's ms per control step (`lh_ms`)."""
+    import dataclasses
+    import datetime
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mpc_ilqr_tpu_torch import scenarios
+    from mpc_ilqr_tpu_torch.costs.quadratics import CostQuadratics
+    from mpc_ilqr_tpu_torch.dynamics import engine
+    from mpc_ilqr_tpu_torch.dynamics import math as qm
+    from mpc_ilqr_tpu_torch.dynamics.kinematics import forward_kinematics
+    from mpc_ilqr_tpu_torch.ilqr import solver
+    from mpc_ilqr_tpu_torch.models.robot import ARRAY_FIELDS, load_h1, load_robot, standing_state
+    from mpc_ilqr_tpu_torch.mpc import controller
+    from mpc_ilqr_tpu_torch.ops import riccati
+    from mpc_ilqr_tpu_torch.ops.assoc_riccati import backward_pass_assoc
+    from mpc_ilqr_tpu_torch.ops.quat_fk import build_level_plans, quat_frames
+    from mpc_ilqr_tpu_torch.parallel import fleet as fleet_mod
+    from mpc_ilqr_tpu_torch.parallel.sharded_solve import step_once_sharded
+    from mpc_ilqr_tpu_torch.parallel.sharding import make_mesh, place_fleet, shard_fleet_step
+
+    def record(label, counts):
+        for name in report:
+            report[name]["launches_by_path"][label] = counts[name]
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=300),
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    mesh = make_mesh(1)
+    print(f"shards: NCCL world of {dist.get_world_size()}, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    if tuple(mesh.shape) != (1, 1):
+        fail(f"shards: make_mesh(1) gave {tuple(mesh.shape)}, not dp = ls = 1")
+
+    # (a) The standing flagship through step_once_sharded, against the local step_once.
+    model, cp, cfg, refs, plan = ctx["standing"]
+    scfg = dataclasses.replace(cfg, line_search="first_accept", ls_backend="pallas_batched")
+
+    def loop(step):
+        """run_closed_loop's steps with `step` as the controller."""
+        state, x, rec = controller.init_state(model, scfg), standing_state(model), []
+        for _ in range(N_STEPS):
+            state, u, diag = step(state, x)
+            rec.append((x, u, diag))
+            x = engine.step(model, x, u)
+        return rec, x
+
+    reset_counts()
+    t1 = time.perf_counter()
+    rec_s, xT_s = loop(lambda st, x: step_once_sharded(mesh, model, cp, scfg, refs, st, x,
+                                                       plan=plan))
+    counts = read_counts()
+    ms_s = (time.perf_counter() - t1) * 1e3 / N_STEPS
+    t1 = time.perf_counter()
+    rec_l, xT_l = loop(lambda st, x: controller.step_once(model, cp, scfg, refs, st, x, plan=plan))
+    torch.cuda.synchronize()
+    ms_l = (time.perf_counter() - t1) * 1e3 / N_STEPS
+    costs = np.array([float(d.cost) for _, _, d in rec_s])
+    zs = np.array([float(x[2]) for x, _, _ in rec_s] + [float(xT_s[2])])
+    for i, ((x, u, d), (xl, ul, dl)) in enumerate(zip(rec_s, rec_l)):
+        same = (d.iterations == dl.iterations and d.solve_ok == dl.solve_ok
+                and torch.equal(d.cost, dl.cost) and torch.equal(u, ul) and torch.equal(x, xl))
+        print(f"sharded step {i:2d}: cost {float(d.cost):.6f}  iterations {d.iterations}  solve_ok "
+              f"{d.solve_ok}  base_z {float(x[2]):.6f}  equal to local {same}")
+        if not same:
+            fail(f"shards: step_once_sharded parts from the local step_once at step {i} "
+                 f"(cost {float(d.cost)} vs {float(dl.cost)}, iterations {d.iterations} vs "
+                 f"{dl.iterations}, max|du| {float((u - ul).abs().max()):.3e})")
+    if not torch.equal(xT_s, xT_l):
+        fail("shards: the sharded and the local closed loop end in different states")
+    print(f"sharded standing ({smi_line}): {ms_s:.2f} ms per MPC step (host clock, one run of "
+          f"{N_STEPS} steps; the local step_once with the same config {ms_l:.2f}); first_accept, "
+          f"ls_backend pallas_batched; final cost {costs[-1]:.6f}, final base_z {zs[-1]:.6f}; "
+          f"launches {counts}")
+    if not (bool(torch.isfinite(torch.stack([x for x, _, _ in rec_s])).all())
+            and bool(torch.isfinite(xT_s).all())):
+        fail("shards: non-finite state in the sharded closed loop")
+    if not all(d.solve_ok for _, _, d in rec_s):
+        fail(f"shards: solve_ok false at steps {[i for i, r in enumerate(rec_s) if not r[2].solve_ok]}")
+    if not (1.0 < zs.min() and zs.max() < 1.1):
+        fail(f"shards: base_z left (1.0, 1.1): min {zs.min()}, max {zs.max()}")
+    if not costs[-1] < costs[0]:
+        fail(f"shards: last cost {costs[-1]} is not below the first {costs[0]}")
+    for name in ("rollout", "linesearch_batched"):
+        if counts[name] < 1:
+            fail(f"shards: {name} was not launched by the sharded closed loop")
+    record("sharded_standing", counts)
+
+    # (b) One chunk of the fleet through shard_fleet_step, against fleet_step_once.
+    fl = scenarios.fleet()
+    fp, chunk = fl.prob, fl.chunk
+    part = lambda t: t[:chunk]
+    m0 = fl.models.replace(**{f: part(getattr(fl.models, f)) for f in ARRAY_FIELDS})
+    s0 = controller.MPCState(**{f: part(getattr(fl.states, f)) for f in fleet_mod.STATE_FIELDS})
+    x0s = part(fl.xs)
+    reset_counts()
+    t1 = time.perf_counter()
+    step = shard_fleet_step(mesh, place_fleet(mesh, m0), fp.cp, fp.cfg, fp.refs)
+    st_s, u_s, d_s, mean_s, ok_s = step(place_fleet(mesh, s0), place_fleet(mesh, x0s))
+    counts = read_counts()
+    chunk_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    st_l, u_l, d_l = fleet_mod.fleet_step_once(m0, fp.cp, fp.cfg, fp.refs, s0, x0s)
+    torch.cuda.synchronize()
+    chunk_l = time.perf_counter() - t1
+    want_mean = d_l.cost.double().sum() / chunk
+    print(f"sharded fleet ({smi_line}): one chunk of {chunk}: {chunk_s * 1e3:.1f} ms by "
+          f"shard_fleet_step, {chunk_l * 1e3:.1f} ms by fleet_step_once (host clock); mean cost "
+          f"{float(mean_s):.9f} (fleet_step_once {float(want_mean):.9f}), solve_ok {int(ok_s)} "
+          f"(fleet_step_once {int(d_l.solve_ok.sum())}) of {chunk}; controls equal "
+          f"{torch.equal(u_s, u_l)}; launches {counts}")
+    if not bool(torch.isfinite(u_s).all()):
+        fail("shards: non-finite controls from shard_fleet_step")
+    if not (torch.equal(u_s, u_l) and torch.equal(mean_s, want_mean)
+            and int(ok_s) == int(d_l.solve_ok.sum())):
+        fail(f"shards: shard_fleet_step parts from fleet_step_once (max|du| "
+             f"{float((u_s - u_l).abs().max()):.3e}, mean {float(mean_s)} vs {float(want_mean)}, "
+             f"solve_ok {int(ok_s)} vs {int(d_l.solve_ok.sum())})")
+    if any(counts.values()):
+        fail(f"shards: the fleet launched a kernel ({counts}); it takes the plain chains")
+    record("sharded_fleet", counts)
+
+    # (c) Long horizon (a) with the associative Riccati pass.
+    prob_, n_steps = scenarios.long_horizon(tuned=True, backward="assoc")
+    drive = lambda: controller.run_closed_loop(
+        prob_.model, prob_.cp, prob_.cfg, prob_.refs, controller.init_state(prob_.model, prob_.cfg),
+        standing_state(prob_.model), n_steps, plan=prob_.plan)
+    reset_counts()
+    t1 = time.perf_counter()
+    _, xT_, h = drive()
+    counts = read_counts()
+    first_s = time.perf_counter() - t1
+    xs_, costs_ = h["x"].cpu().numpy(), h["cost"].cpu().numpy()
+    for i in range(len(costs_)):
+        print(f"long_horizon_assoc solve {i}: cost {costs_[i]:.6f}  iterations {h['iterations'][i]}"
+              f"  solve_ok {h['solve_ok'][i]}  base_z {xs_[i, 2]:.6f}")
+    z_ = float(xT_[2])
+    print(f"long_horizon_assoc: {n_steps} control steps, N={prob_.cfg.N}, backward "
+          f"{prob_.cfg.backward!r}, final base_z {z_:.6f}, final cost {costs_[-1]:.6f}; launches "
+          f"{counts}; first run {first_s:.2f} s")
+    if not (np.isfinite(xs_).all() and bool(torch.isfinite(xT_).all())):
+        fail("long_horizon_assoc: non-finite state")
+    if not all(h["solve_ok"]):
+        fail(f"long_horizon_assoc: solve_ok false at solves "
+             f"{[i for i, ok in enumerate(h['solve_ok']) if not ok]}")
+    if not (1.0 < xs_[:, 2].min() and xs_[:, 2].max() < 1.1 and 1.0 < z_ < 1.1):
+        fail(f"long_horizon_assoc: base_z left (1.0, 1.1): min {xs_[:, 2].min()}, max "
+             f"{xs_[:, 2].max()}, final {z_}")
+    for name in ("rollout", "linesearch"):
+        if counts[name] < 1:
+            fail(f"long_horizon_assoc: {name} was not launched")
+    if counts["riccati"]:
+        fail(f"long_horizon_assoc: K4 launched {counts['riccati']} times; assoc takes its place")
+    record("long_horizon_assoc", counts)
+    t1 = time.perf_counter()
+    drive()
+    torch.cuda.synchronize()
+    print(f"long_horizon_assoc ({smi_line}): {(time.perf_counter() - t1) * 1e3 / n_steps:.2f} ms "
+          f"per control step (host clock, warm, {n_steps} steps); phase 6's long_horizon_tuned "
+          f"(backward 'pallas', K4) {ctx['lh_ms']['long_horizon_tuned']:.2f}")
+    A_, B_, lq, reg_t, pd = (ctx[k] for k in ("A", "B", "quad", "reg", "pd"))
+    breakdown({
+        "backward_pass_assoc": lambda: backward_pass_assoc(A_, B_, lq, reg_t, pd),
+        "K4 riccati_backward": lambda: riccati.backward_pass_kernel(*ctx["lh_args"], reg_t, pd),
+        "backward_pass (port loop)": lambda: solver.backward_pass(A_, B_, lq, reg_t, pd),
+    }, f"N={prob_.cfg.N}, one backward pass")
+
+    # K and kff against the float64 serial pass: float64 on tests/test_ops.py:64-86's
+    # problem, then float32 on phase 5's long-horizon inputs.
+    rng = np.random.default_rng(1)
+    N, nx, nu = 100, 12, 5
+    t64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")
+    A64 = t64(np.eye(nx) + 0.01 * rng.normal(size=(N, nx, nx)))
+    B64 = t64(0.02 * rng.normal(size=(N, nx, nu)))
+    q64 = CostQuadratics(
+        lx=t64(rng.normal(size=(N + 1, nx))), lu=t64(rng.normal(size=(N, nu))),
+        lxx=t64(np.einsum("ti,ij->tij", rng.uniform(0.5, 3, (N + 1, nx)), np.eye(nx))),
+        luu=t64(np.einsum("ti,ij->tij", rng.uniform(0.05, 1, (N, nu)), np.eye(nu))))
+    reg64 = t64(1e-6)
+    got = backward_pass_assoc(A64, B64, q64, reg64, 1e-4)
+    want = solver.backward_pass(A64, B64, q64, reg64, 1e-4)
+    for out, g, w in zip(("K", "kff"), got, want):
+        e = float((g - w).abs().max())
+        ok = bool(((g - w).abs() <= 1e-9 + 1e-8 * w.abs()).all())
+        print(f"backward_pass_assoc, float64, (N, nx, nu) = ({N}, {nx}, {nu}): {out} "
+              f"max|assoc - serial| {e:.3e} (rtol 1e-8, atol 1e-9: {ok})")
+        if not ok:
+            fail(f"backward_pass_assoc: float64 {out} beyond rtol 1e-8 / atol 1e-9 ({e:.3e})")
+    p64 = ctx["p64"]
+    got = backward_pass_assoc(A_, B_, lq, reg_t, pd)
+    for j, out in enumerate(("K", "kff")):
+        e = float((got[j].double() - p64[j]).abs().max())
+        bar = ASSOC_FACTOR * ASSOC_ANCHOR[out]
+        print(f"backward_pass_assoc on the long-horizon inputs (N={A_.shape[0]}, float32), {out}: "
+              f"|assoc - plain64| {e:.3e} (K4 {ctx['k4_err'][out]:.3e}; the JAX package's "
+              f"float32 assoc {ASSOC_ANCHOR[out]:.4g}; bar {bar:.4g})")
+        if not e <= bar:
+            fail(f"backward_pass_assoc: float32 {out} further from float64 than {ASSOC_FACTOR}x "
+                 f"the reference's own associative pass ({e:.3e} > {bar:.3e})")
+
+    # (d) The quaternion FK against the matrix FK, float64.
+    rng = np.random.default_rng(11)
+    hand = os.path.join(ROOT, "robots", "h1_description", "mjcf", "h1_with_hand.xml")
+    for label, m in (("h1", load_h1(dtype=torch.float64)),
+                     ("h1_with_hand", load_robot(hand, dtype=torch.float64))):
+        plans = build_level_plans(m)
+        e_p = e_r = 0.0
+        for _ in range(3):
+            q = np.zeros(m.nq)
+            q[:3] = rng.normal(size=3)
+            quat = rng.normal(size=4)
+            q[3:7] = quat / np.linalg.norm(quat)
+            q[7:] = rng.normal(0, 0.5, m.nq - 7)
+            qt = torch.as_tensor(q, dtype=torch.float64, device=m.device)
+            Q, P = quat_frames(m, plans, qt)
+            fr = forward_kinematics(m, qt)
+            for got, want in ((P, fr.p), (qm.quat_to_mat(Q), fr.R)):
+                if not bool(((got - want).abs() <= 1e-12 + 1e-7 * want.abs()).all()):
+                    fail(f"quat_frames on {label}: beyond atol 1e-12 / rtol 1e-7 of "
+                         f"forward_kinematics ({float((got - want).abs().max()):.3e})")
+            e_p = max(e_p, float((P - fr.p).abs().max()))
+            e_r = max(e_r, float((qm.quat_to_mat(Q) - fr.R).abs().max()))
+        print(f"quat_frames on {label} ({m.nbody} bodies, {Q.device}, float64): max|P - p| "
+              f"{e_p:.3e}, max|R(Q) - R| {e_r:.3e} (atol 1e-12, rtol 1e-7)")
+    dist.destroy_process_group()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1044,6 +1312,7 @@ def main() -> int:
 
     variants = {"long_horizon_tuned": dict(tuned=True),
                 "long_horizon_tuned_it1_tvlqr2": dict(tuned=True, iters=1, solve_every=2)}
+    lh_ms = {}
     for label, kw in variants.items():
         prob_, n_steps = scenarios.long_horizon(**kw)
         k = kw.get("solve_every", 1)
@@ -1085,7 +1354,8 @@ def main() -> int:
         t1 = time.perf_counter()
         drive(prob_, k, n_steps)
         torch.cuda.synchronize()
-        print(f"{label}: {(time.perf_counter() - t1) * 1e3 / n_steps:.2f} ms per control step "
+        lh_ms[label] = (time.perf_counter() - t1) * 1e3 / n_steps
+        print(f"{label}: {lh_ms[label]:.2f} ms per control step "
               f"(host clock, warm, {n_steps} steps)")
     print(LH_ANCHORS)
 
@@ -1207,6 +1477,13 @@ def main() -> int:
     t0 = time.perf_counter()
     exact_phase(report, smi_line, reset_counts, read_counts)
     phase("exact", t0)
+
+    # ---- 10. shards and scans: the sharded solve and fleet, assoc, quat FK ----
+    t0 = time.perf_counter()
+    shards_phase(report, smi_line, reset_counts, read_counts, dict(
+        standing=(model, cp, cfg, refs, plan), lh_args=lh_args, A=A_, B=B_, quad=lq, reg=reg_t,
+        pd=pd, p64=p64, k4_err={k: v[0] for k, v in lh_err.items()}, lh_ms=lh_ms))
+    phase("shards", t0)
 
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -40,6 +40,14 @@ def quat_conj(q: torch.Tensor) -> torch.Tensor:
     return torch.cat([q[..., :1], -q[..., 1:4]], dim=-1)
 
 
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v by quaternion(s) q: R(q) @ v, as
+    v + 2 w (u × v) + 2 u × (u × v)."""
+    w, u = q[..., 0:1], q[..., 1:4]
+    uv = cross(u, v)
+    return v + 2.0 * (w * uv + cross(u, uv))
+
+
 def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
     """Rotation matrix (..., 3, 3) from quaternion(s) (..., 4) wxyz."""
     w, x, y, z = q[..., 0:1], q[..., 1:2], q[..., 2:3], q[..., 3:4]

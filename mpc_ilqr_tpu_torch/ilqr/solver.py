@@ -7,9 +7,12 @@
   quadraticize   exact cost quadratics (quad_mode "exact") or Gauss-Newton
                  ("gn")
   backward       Riccati recursion with λ-regularization and one PD bump:
-                 K4 in one launch (`backward="pallas"`) or the loop below
+                 K4 in one launch (`backward="pallas"`), the loop below
+                 ("scan") or the associative scan of ops/assoc_riccati.py
+                 ("assoc", O(log N) depth)
   line search    cascade: α=1 alone (K2), then the other alphas in one
-                 launch (K3) only on reject; or first_accept / argmin
+                 launch (K3) only on reject; or first_accept / argmin; or
+                 a caller's `ls_fn` (parallel/sharded_solve.py)
   outer loop     the reference's adaptive regularization, retry, give-up
                  and divergence policy (ilqr.cpp:619-656)
 
@@ -43,6 +46,7 @@ from mpc_ilqr_tpu_torch.dynamics import engine
 from mpc_ilqr_tpu_torch.models.robot import RobotModel, static_tensor
 from mpc_ilqr_tpu_torch.ops import riccati
 from mpc_ilqr_tpu_torch.ops import rollout_kernel as rk
+from mpc_ilqr_tpu_torch.ops.assoc_riccati import backward_pass_assoc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +72,7 @@ class ILQRConfig:
     cost_mode: str = "reference"
     n_substeps: int = 1  # physics substeps per horizon step (dt/physics_dt)
     line_search: str = "first_accept"  # "first_accept" | "argmin" | "cascade"
-    backward: str = "scan"  # "scan": the Riccati loop below; "pallas": K4
+    backward: str = "scan"  # "scan": the Riccati loop below; "pallas": K4; "assoc"
     # "ad" (jvp over the nx+nu directions of engine.step), "ad_frozen_mass"
     # (the same with M(q) detached), "fd" (forward differences with fd_eps,
     # robot_utils.cpp:120-160), "structured" / "structured_frozen_mass"
@@ -103,7 +107,7 @@ class ILQRConfig:
 _SUPPORTED = {
     "cost_mode": ("reference", "full"),
     "line_search": ("first_accept", "argmin", "cascade"),
-    "backward": ("scan", "pallas"),
+    "backward": ("scan", "pallas", "assoc"),
     "outer_loop": ("while", "scan"),
     "linearization": ("ad", "ad_frozen_mass", "fd", "structured", "structured_frozen_mass"),
     "rollout_backend": ("xla", "pallas"),
@@ -315,7 +319,7 @@ def line_search_device(model: RobotModel, cp: CostParams, cfg: ILQRConfig,
 
 
 def solve(model: RobotModel, cp: CostParams, cfg: ILQRConfig, x0, win: ReferenceWindow,
-          ubar_init, xbar_init=None, reg0=None, plan=None) -> ILQRSolution:
+          ubar_init, xbar_init=None, reg0=None, plan=None, ls_fn=None) -> ILQRSolution:
     """Multi-iteration iLQR (iLQR::solve, ilqr.cpp:521-660).
 
     Each iteration linearizes and quadraticizes at the nominal trajectory,
@@ -323,7 +327,14 @@ def solve(model: RobotModel, cp: CostParams, cfg: ILQRConfig, x0, win: Reference
     multiplying λ by 10 after a failed one. Convergence: |Δcost| < tol;
     divergence: cost > 1e6; give-up: no accepted step at iteration > 1.
     With outer_loop="scan" and linearize_every=k > 1, only every k-th
-    iteration linearizes (see ILQRConfig)."""
+    iteration linearizes (see ILQRConfig).
+
+    `ls_fn`, when given, replaces the line search with a function of the
+    same contract (the reference's hook, mpc_ilqr_tpu/ilqr/solver.py:440):
+        ls_fn(win, x0, xbar, ubar, K, kff, baseline) ->
+            (accepted, xs, us, cost, best_cost)
+    e.g. parallel/sharded_solve.py's search with its alphas spread over
+    the ranks of a process group."""
     check_config(cfg)
     N, nu, nx = cfg.N, model.nu, model.nx
     dt, dev = x0.dtype, x0.device
@@ -355,10 +366,15 @@ def solve(model: RobotModel, cp: CostParams, cfg: ILQRConfig, x0, win: Reference
             if cfg.backward == "pallas":
                 K, kff = riccati.backward_pass_kernel(
                     *(t.contiguous() for t in (A, B, *quad)), reg_a, cfg.pd_bump)
+            elif cfg.backward == "assoc":
+                K, kff = backward_pass_assoc(A, B, quad, reg_a, cfg.pd_bump)
             else:
                 K, kff = backward_pass(A, B, quad, reg_a, cfg.pd_bump)
-            ok, xs, us, c_new, best = line_search(
-                model, cp, cfg, win, x0, xbar, ubar, K, kff, baseline, plan=plan)
+            if ls_fn is not None:
+                ok, xs, us, c_new, best = ls_fn(win, x0, xbar, ubar, K, kff, baseline)
+            else:
+                ok, xs, us, c_new, best = line_search(
+                    model, cp, cfg, win, x0, xbar, ubar, K, kff, baseline, plan=plan)
             attempts += 1
             if ok:
                 break
@@ -403,13 +419,14 @@ def device_solve(model: RobotModel, cp: CostParams, cfg: ILQRConfig, x0, win: Re
     alpha by tensor index; iterations and success are 0-dim tensors. No
     `bool()`, `int()` or `.item()`: it runs under `torch.func.vmap` and
     waits for the device nowhere. Takes no StepPlan: the plain chains only
-    (rollout_backend and ls_backend "xla", backward "scan")."""
+    (rollout_backend and ls_backend "xla", backward "scan" or "assoc")."""
     cfg = vmap_safe(cfg)
     check_config(cfg)
-    if (cfg.rollout_backend, cfg.ls_backend, cfg.backward) != ("xla", "xla", "scan"):
+    if (cfg.rollout_backend, cfg.ls_backend) != ("xla", "xla") or cfg.backward == "pallas":
         raise NotImplementedError(
             "device_solve runs the plain chains only (rollout_backend='xla', ls_backend='xla', "
-            "backward='scan'); see batched_config and ROADMAP.md Queue 1 item 2")
+            "backward 'scan' or 'assoc'); see batched_config and ROADMAP.md Queue 1 item 2")
+    backward = backward_pass_assoc if cfg.backward == "assoc" else backward_pass
     N, nu, nx = cfg.N, model.nu, model.nx
     dt, dev = x0.dtype, x0.device
     if xbar_init is None:
@@ -427,7 +444,7 @@ def device_solve(model: RobotModel, cp: CostParams, cfg: ILQRConfig, x0, win: Re
              ever_accepted=false, stationary=false, diverged=false)
 
     def attempt(A, B, quad, xbar, ubar, baseline, reg_a):
-        K, kff = backward_pass(A, B, quad, reg_a, cfg.pd_bump)
+        K, kff = backward(A, B, quad, reg_a, cfg.pd_bump)
         ok, xs, us, cost, best = line_search_device(model, cp, cfg, win, x0, xbar, ubar, K, kff,
                                                     baseline)
         reg_next = torch.where(ok, reg_a, torch.clamp(reg_a * 10.0, max=cfg.reg_max))

@@ -2,9 +2,14 @@
 
 One `nvcc` per source, all started together, compiles the sources to
 objects, and one more links them into a shared library with a plain C
-interface under `build/torch_kernels/<hash of sources and flags>/`, loaded
-with ctypes. The finished library is renamed into place, so a cut build
-leaves nothing that a later one would wait on. A failed build raises with
+interface under `build/torch_kernels/<hash of toolchain, sources and
+flags>/`, loaded with ctypes. The hash takes `nvcc --version` whole (its
+first line names only the compiler; the release and build lines pin the
+toolchain) and the flags pin the target (sm_90a), so another compiler or
+another target builds anew: the port's counterpart of the reference's
+compile persistence (mpc_ilqr_tpu/utils/aot.py), whose fingerprint pins
+the toolchain and the device kind. The finished library is renamed into
+place, so a cut build leaves nothing that a later one would wait on. A failed build raises with
 nvcc's output. `build` also takes another csrc/ directory and build root,
 so that an earlier design of the kernels can be built beside the current
 one (tools/port_rollout_designs.py).
@@ -27,6 +32,7 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
+_toolchain = None
 build_log = {"seconds": None, "ptxas": [], "path": None}
 
 
@@ -44,9 +50,22 @@ def _sources(csrc):
             [os.path.join(csrc, n) for n in names if n.endswith((".cu", ".cuh"))])
 
 
-def digest(files, flags=tuple(ARCH + CFLAGS)) -> str:
-    """Hash of the flags and the sources' names and bytes: a build's directory."""
-    h = hashlib.sha256(" ".join(flags).encode())
+def toolchain() -> str:
+    """`nvcc --version`'s output (cached)."""
+    global _toolchain
+    if _toolchain is None:
+        proc = subprocess.run([_nvcc(), "--version"], capture_output=True, text=True, timeout=60)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc --version failed:\n{proc.stdout}{proc.stderr}")
+        _toolchain = proc.stdout
+    return _toolchain
+
+
+def digest(files, flags=tuple(ARCH + CFLAGS), tool: str = "") -> str:
+    """Hash of the toolchain's version text, the flags and the sources'
+    names and bytes: a build's directory."""
+    h = hashlib.sha256(tool.encode())
+    h.update(" ".join(flags).encode())
     for f in files:
         h.update(os.path.basename(f).encode())
         with open(f, "rb") as fh:
@@ -58,7 +77,7 @@ def build(csrc: str = CSRC, root: str = BUILD_ROOT) -> str:
     """Compile csrc/*.cu (unless this exact build exists under root) and
     return the path of the shared library."""
     cu, files = _sources(csrc)
-    out_dir = os.path.join(root, digest(files))
+    out_dir = os.path.join(root, digest(files, tool=toolchain()))
     lib_path = os.path.join(out_dir, "libmpc_kernels.so")
     if os.path.isfile(lib_path):
         build_log.update(seconds=0.0, path=lib_path)

@@ -93,13 +93,38 @@ def _port_sources():
     yield os.path.join(ROOT, "chip_smoke.py")
 
 
+# The MuJoCo plant imports mujoco inside a function (import_mujoco), when a
+# plant is built; a module-level import there would still load it.
+MUJOCO_PLANT = os.path.join(PORT, "mpc", "mujoco_plant.py")
+LAZY = {"mujoco": (MUJOCO_PLANT,)}
+
+
 @pytest.mark.parametrize("module", FORBIDDEN)
 def test_port_sources_import_no_reference_stack(module):
     """No import of jax/flax/yaml/mujoco/mpc_ilqr_tpu anywhere in the port
-    or in chip_smoke.py (the card's machine has none of them)."""
-    pat = re.compile(rf"^\s*(import|from)\s+{re.escape(module)}(\.|\s|$)", re.M)
-    hits = [p for p in _port_sources() if pat.search(open(p).read())]
+    or in chip_smoke.py (a GPU host need not have any of them), except a
+    function-level import of mujoco in mpc/mujoco_plant.py."""
+    anywhere = re.compile(rf"^\s*(import|from)\s+{re.escape(module)}(\.|\s|$)", re.M)
+    top = re.compile(rf"^(import|from)\s+{re.escape(module)}(\.|\s|$)", re.M)
+    hits = [p for p in _port_sources()
+            if (top if p in LAZY.get(module, ()) else anywhere).search(open(p).read())]
     assert not hits, f"{module} imported by {hits}"
+
+
+def test_the_mujoco_plant_module_does_not_import_mujoco():
+    """Where mujoco is installed (here), importing the plant and the CLI
+    leaves it out of sys.modules; building a plant loads it."""
+    pytest.importorskip("mujoco")
+    code = ("import sys\n"
+            f"sys.path.insert(0, {ROOT!r})\n"
+            "import mpc_ilqr_tpu_torch.mpc.mujoco_plant as mp, mpc_ilqr_tpu_torch.run_mpc\n"
+            "assert 'mujoco' not in sys.modules\n"
+            "mp.import_mujoco()\n"
+            "assert 'mujoco' in sys.modules\n"
+            "print('LAZY_OK')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0 and "LAZY_OK" in out.stdout, out.stdout + out.stderr
 
 
 POISONED_RUN = r"""
@@ -120,7 +145,18 @@ import mpc_ilqr_tpu_torch.ops.riccati, mpc_ilqr_tpu_torch.scenarios
 import mpc_ilqr_tpu_torch.ops.linalg, mpc_ilqr_tpu_torch.parallel.fleet
 import mpc_ilqr_tpu_torch.io.native, mpc_ilqr_tpu_torch.io.logging
 import mpc_ilqr_tpu_torch.utils.profiling, mpc_ilqr_tpu_torch.mpc.checkpoint
-import mpc_ilqr_tpu_torch.run_mpc
+import mpc_ilqr_tpu_torch.run_mpc, mpc_ilqr_tpu_torch.mpc.mujoco_plant
+import mpc_ilqr_tpu_torch.ops.assoc_riccati, mpc_ilqr_tpu_torch.ops.quat_fk
+import mpc_ilqr_tpu_torch.parallel.sharded_solve, mpc_ilqr_tpu_torch.parallel.sharding
+import contextlib, io
+err = io.StringIO()
+with contextlib.redirect_stderr(err):
+    try:
+        mpc_ilqr_tpu_torch.run_mpc.main(["--plant", "mujoco", "--cpu", "--steps", "1"])
+        raise AssertionError("--plant mujoco ran without mujoco")
+    except SystemExit as e:
+        assert e.code == 2, e.code
+assert "needs the mujoco package" in err.getvalue(), err.getvalue()
 from mpc_ilqr_tpu_torch.io.config import load_config
 from mpc_ilqr_tpu_torch.mpc import runner, controller
 from mpc_ilqr_tpu_torch.models.robot import standing_state
@@ -157,7 +193,9 @@ def test_port_runs_with_reference_stack_poisoned():
     """Rehearse the card's run without the card: with jax, flax, yaml,
     mujoco and mpc_ilqr_tpu unimportable, import chip_smoke and the port
     with its runtime modules (native I/O, logging, profiling, checkpoints,
-    the CLI), then set up the flagship from config.yaml and take one MPC
+    the CLI, the MuJoCo plant, the associative Riccati pass, the quaternion
+    FK, the sharded solve and the mesh), check that `--plant mujoco` fails
+    with an error that names mujoco, then set up the flagship from config.yaml and take one MPC
     step on CPU, one long-horizon step with backward="pallas" (K4's
     plain version) at N=6, and one step of scenarios.exact_standing ("ad"
     + "exact") at N=3."""

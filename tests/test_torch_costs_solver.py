@@ -162,17 +162,17 @@ SUPPORTED = dict(linearization="structured_frozen_mass", quad_mode="gn")  # conf
 
 
 def test_unported_solver_options_raise():
-    """Each unported value raises for its own field on an otherwise
-    supported config; the reference's exact-derivative modes, ported since,
-    pass."""
+    """A value outside the reference's raises for its own field on an
+    otherwise supported config; every value of the reference's, the
+    exact-derivative modes and backward "assoc" among them, passes."""
     ok = tsol.ILQRConfig(**SUPPORTED)
     tsol.check_config(ok)
     for field, value in (("quad_mode", "exact"), ("linearization", "ad"),
                          ("linearization", "ad_frozen_mass"), ("linearization", "fd"),
-                         ("cost_mode", "full")):
+                         ("cost_mode", "full"), ("backward", "assoc")):
         tsol.check_config(dataclasses.replace(ok, **{field: value}))
     with pytest.raises(NotImplementedError, match="ILQRConfig.backward="):
-        tsol.check_config(dataclasses.replace(ok, backward="assoc"))
+        tsol.check_config(dataclasses.replace(ok, backward="cyclic_reduction"))
     with pytest.raises(ValueError, match="linearization="):
         tsol.linearize(None, dataclasses.replace(ok, linearization="jacrev"), None, None)
 

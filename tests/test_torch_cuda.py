@@ -551,3 +551,111 @@ def test_fd_against_ad_on_the_card(card):
     Af, Bf = solver.linearize(m, solver.ILQRConfig(N=3, linearization="fd", fd_eps=1e-6), xs, us)
     assert A.device.type == "cuda" and bool(torch.isfinite(A).all())
     assert float((Af - A).abs().max()) <= 5e-4 and float((Bf - B).abs().max()) <= 5e-4
+
+
+def test_assoc_riccati_on_the_card_raises_and_syncs_nothing(card):
+    """backward_pass_assoc on CUDA, float32, H1's sizes at N=100
+    (chip_smoke.riccati_problem) and with an indefinite knot, under
+    sync-debug "error": no host sync and no raise; against its run on the
+    CPU on the same inputs at the JAX package's Riccati bar (rtol 2e-3,
+    atol 2e-4); the indefinite knot alone non-finite on both."""
+    from mpc_ilqr_tpu_torch.costs.quadratics import CostQuadratics
+    from mpc_ilqr_tpu_torch.ops.assoc_riccati import backward_pass_assoc
+
+    for case in ("plain", "indefinite"):
+        args = [torch.as_tensor(a, dtype=torch.float32) for a in
+                riccati_problem(100, 51, 19, case)]
+        run = lambda ts, reg: backward_pass_assoc(ts[0], ts[1], CostQuadratics(*ts[2:]), reg,
+                                                  1e-4)
+        on_card = [a.cuda() for a in args]
+        reg = torch.full((), RICCATI_REG, device="cuda")
+        run(on_card, reg)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = run(on_card, reg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want = run(args, torch.tensor(RICCATI_REG))
+        for g, w in zip(got, want):
+            g = g.cpu()
+            assert torch.equal(torch.isfinite(g), torch.isfinite(w)), case
+            fin = torch.isfinite(w)
+            assert bool(((g - w).abs()[fin] <= 2e-4 + 2e-3 * w.abs()[fin]).all()), case
+        bad = (~torch.isfinite(got[1])).any(1).nonzero().flatten().tolist()
+        assert bad == ([] if case == "plain" else [RICCATI_T_BAD]), (case, bad)
+
+
+def test_world_one_nccl_sharded_line_search_equals_the_local_one(card):
+    """A world-1 NCCL group and make_mesh(1): the sharded line search (K3
+    over all the alphas, one all_gather) against `line_search` with the
+    same config, first_accept and argmin, on chip_smoke's kernel inputs of
+    the standing flagship: equal to the last bit."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    from chip_smoke import kernel_inputs, standing_problem
+    from mpc_ilqr_tpu_torch.costs.quadratics import trajectory_cost
+    from mpc_ilqr_tpu_torch.costs.references import extract_window
+    from mpc_ilqr_tpu_torch.ilqr import solver
+    from mpc_ilqr_tpu_torch.ops import rollout_kernel as rk
+    from mpc_ilqr_tpu_torch.parallel.sharded_solve import sharded_line_search
+    from mpc_ilqr_tpu_torch.parallel.sharding import make_mesh
+    from torch_dist_ranks import free_port
+
+    p = standing_problem()
+    i = kernel_inputs(p.model, p.cfg.alphas, p.cfg.N)
+    win = extract_window(p.refs, 0, p.cfg.N)
+    base = trajectory_cost(p.model, p.cp, win, i["xbar"], i["ubar"])
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=120),
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_mesh(1)
+        assert tuple(mesh.shape) == (1, 1)
+        for mode in ("first_accept", "argmin"):
+            cfg = dataclasses.replace(p.cfg, line_search=mode, ls_backend="pallas_batched")
+            args = (win, i["x0"], i["xbar"], i["ubar"], i["K"], i["kff"], base)
+            rk.reset_launch_counts()
+            got = sharded_line_search(mesh, p.model, p.cp, cfg, plan=p.plan)(*args)
+            torch.cuda.synchronize()
+            assert rk.LAUNCHES["linesearch_batched"] == 1
+            want = solver.line_search(p.model, p.cp, cfg, *args, plan=p.plan)
+            assert got[0] == want[0]
+            for g, w in zip(got[1:], want[1:]):
+                assert g.device.type == "cuda" and torch.equal(g, w), mode
+    finally:
+        dist.destroy_process_group()
+
+
+def test_quat_frames_on_the_card(card):
+    """quat_frames on H1, float64, on the card: against forward_kinematics
+    at the JAX test's bar (atol 1e-12, rtol 1e-7) and against its run on
+    the CPU at 1e-12."""
+    from mpc_ilqr_tpu_torch.dynamics import math as qm
+    from mpc_ilqr_tpu_torch.dynamics.kinematics import forward_kinematics
+    from mpc_ilqr_tpu_torch.models.robot import load_h1
+    from mpc_ilqr_tpu_torch.ops.quat_fk import build_level_plans, quat_frames
+
+    rng = np.random.default_rng(11)
+    q = np.zeros(26)
+    q[:3] = rng.normal(size=3)
+    quat = rng.normal(size=4)
+    q[3:7] = quat / np.linalg.norm(quat)
+    q[7:] = rng.normal(0, 0.5, 19)
+    out = {}
+    for device in ("cuda", "cpu"):
+        m = load_h1(dtype=torch.float64, device=device)
+        qt = torch.as_tensor(q, device=device)
+        out[device] = quat_frames(m, build_level_plans(m), qt)
+        if device == "cuda":
+            fr = forward_kinematics(m, qt)
+            Q, P = out[device]
+            assert Q.device.type == "cuda"
+            assert bool(((P - fr.p).abs() <= 1e-12 + 1e-7 * fr.p.abs()).all())
+            R = qm.quat_to_mat(Q)
+            assert bool(((R - fr.R).abs() <= 1e-12 + 1e-7 * fr.R.abs()).all())
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert float((g.cpu() - w).abs().max()) <= 1e-12

@@ -367,3 +367,49 @@ def test_config_without_derivative_keys_builds_the_reference_default(tmp_path):
     assert (cfg.linearization, cfg.quad_mode, cfg.cost_mode) == ("ad", "exact", "reference")
     tsol.check_config(cfg)
     tsol.check_config(tsol.ILQRConfig())
+
+
+# ---- float32 "fd" against the reference's own float32 "fd" ---------------------------
+
+FD32_FIXTURE = os.path.join(ROOT, "tests", "torch_fixtures", "fd32_h1.npz")
+# Each float32 forward difference at fd_eps 1e-5 carries round-off of about
+# eps32 / fd_eps ~ 1e-2 of the derivative, so two sum orders part further in
+# "fd" than in "ad_frozen_mass". Relative cost bars: fd 2e-3 (measured gap
+# 4.3e-4), ad_frozen_mass 5e-5 (measured 5.2e-6); controls 1e-3 (1.8e-4),
+# states 1e-4 (1.3e-5).
+FD32_COST_RTOL = {"fd": 2e-3, "ad_frozen_mass": 5e-5}
+
+
+@pytest.mark.parametrize("mode", ["fd", "ad_frozen_mass"])
+def test_h1_float32_fd_outcome_matches_the_reference(mode):
+    """The standing flagship in float32 with cost_mode "full" and fd_eps
+    1e-5 at N=6 (the shipped cascade and GN quadratics on the plain
+    chains), two MPC steps from the standing state, against the JAX
+    package's own run (tests/torch_fixtures/fd32_h1.npz,
+    tools/port_fd32_fixture.py): the same success or failure, iterations
+    and λ at every step, costs, controls and states at the float32 floor.
+    The reference's "fd" fails both solves here too (iterations 3, λ
+    clamped at reg_max) while "ad_frozen_mass" succeeds: in float32 at this
+    fd_eps, forward differences are too noisy for the line search to
+    accept a step. Not a fault of the port."""
+    from mpc_ilqr_tpu_torch.io.config import load_config
+    from mpc_ilqr_tpu_torch.mpc import runner
+
+    fx = np.load(FD32_FIXTURE)
+    app = load_config(os.path.join(ROOT, "config.yaml"))
+    app.q_ref_path, app.v_ref_path, app.contact_schedule_path = (
+        "data/q_standing.csv", "data/v_standing.csv", "data/contact_standing.csv")
+    prob = runner.setup(app, device="cpu")
+    cfg = dataclasses.replace(prob.cfg, linearization=mode, **json.loads(str(fx["solver"])))
+    assert prob.model.dtype == torch.float32 and cfg.fd_eps == 1e-5
+    state, x = tctl.init_state(prob.model, cfg), standing_state(prob.model)
+    for k in range(2):
+        close(x, fx[f"{mode}{k}_x"], 1e-4, f"step {k} x")
+        state, u, diag = tctl.step_once(prob.model, prob.cp, cfg, prob.refs, state, x)
+        assert diag.solve_ok == bool(fx[f"{mode}{k}_solve_ok"]) == (mode != "fd"), k
+        assert diag.iterations == int(fx[f"{mode}{k}_iterations"]), k
+        assert float(diag.reg) == float(fx[f"{mode}{k}_reg"]), k
+        want = float(fx[f"{mode}{k}_cost"])
+        assert abs(float(diag.cost) - want) <= FD32_COST_RTOL[mode] * abs(want), (k, diag.cost)
+        close(u, fx[f"{mode}{k}_u"], 1e-3, f"step {k} u")
+        x = engine.step(prob.model, x, u, cfg.n_substeps)
