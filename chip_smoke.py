@@ -26,9 +26,8 @@ Phases, each printing its wall seconds:
               package's Riccati bar (rtol 2e-3, atol 2e-4,
               tests/test_ops.py:36-37); on the long-horizon path's own inputs
               (N=100) against float64, K and kff each no further than float32
-              allows; each reading beside K4's first design's; then timed at
-              N=25 and N=100 beside the plain version and the port's
-              torch.linalg loop
+              allows; then timed at N=25 and N=100 beside the plain version
+              and the port's torch.linalg loop
   6. long horizon  scenarios.long_horizon (N=100, dt 0.01, backward "pallas")
               in two variants, (a) tuned, 5 MPC steps and (b) tuned, one
               iteration, a solve every 2nd of 6 control steps; each held to
@@ -101,6 +100,27 @@ Phases, each printing its wall seconds:
               quat_frames against forward_kinematics on H1 and H1 with
               hands, float64, at the JAX test's bar (atol 1e-12, rtol 1e-7);
               then the group is destroyed
+ 11. k4 at every input  (a) K4 against its plain version on the random
+              cases past the narrow design's sizes (RICCATI_CASES: H1 with
+              hands (103, 45) plain and both bump cases, and (128, 64)), at
+              the JAX bar; (b) on the hands problem's own inputs
+              (hands_inputs: A, B and the GN quadratics along the cold-start
+              rollout) at N=25 and N=100 against float64, no further than
+              float32 allows; (c) the hands solve (hands_problem: config.yaml's
+              solver with backward "pallas") at N=25, dt 0.02 and N=100, dt
+              0.01, held to finite outputs, the iterations and solve_ok of
+              the same solve with backward "scan", its final cost within
+              SEED_COST_RTOL, K4 once per backward pass and K1/K2 launched;
+              ms per iteration and where a hands iteration's time goes;
+              (d) one fleet chunk of 128 through fleet_step_once with
+              backward "pallas" under sync-debug "error" and the 8-seed
+              search with "pallas", each against phase 8's "scan" run of the
+              same problem (solve_ok count equal, controls within
+              SEED_UBAR_ATOL, costs within SEED_COST_RTOL), K4 launched once
+              per attempt run with the whole batch in one launch; (e) K4's
+              times at the hands sizes and over the chunk's 128 instances
+              (B=128, H1, N=25) beside the plain version and the port's loop
+              (vmapped for the batch)
 Each path is driven with every launch count set to 0 just before it and read
 just after. Then one `kernels` JSON line and, last, the `ok` JSON line. Any
 failed check exits non-zero before the result lines. Imports only the port,
@@ -131,16 +151,19 @@ WALK_ANCHOR = dict(steps_run=54, failed=(53,), final_cost=71560.2656, base_z=1.0
 RICCATI_RTOL, RICCATI_ATOL = 2e-3, 2e-4  # tests/test_ops.py:36-37
 RICCATI_REG = 2.0 ** -20  # ~1e-6, exact in float32 (the bump case needs an exact zero pivot)
 RICCATI_T_BAD = 6  # the step where riccati_problem's bump cases put their pivot
-# Phase 5's reference cases: (N, nx, nu, riccati_problem case, λ).
+# K4's reference cases: (N, nx, nu, riccati_problem case, λ). Phase 5 runs those at
+# nx <= 64, nu <= 32 (riccati_backward, the narrow design); phase 11 the others: H1
+# with hands (103, 45), its bump cases (N=8: one step past the bad one) and the
+# largest size.
 RICCATI_CASES = ((10, 51, 19, "plain", 1e-6), (4, 13, 5, "plain", 1e-5),
-                 (10, 51, 19, "rescued", RICCATI_REG), (10, 51, 19, "indefinite", RICCATI_REG))
-# K4's first design (seven block phases per knot, one output per thread) on
-# phase 5's inputs, printed beside this design's readings: max|kernel - plain|
-# per reference case and |kernel - plain64| of K and kff on the long-horizon
-# inputs (tools/port_riccati_designs.py; NVIDIA H100 80GB HBM3, 700.00 W).
-FIRST_K4 = {(10, 51, 19, "plain"): 2.384e-06, (4, 13, 5, "plain"): 3.576e-07,
-            (10, 51, 19, "rescued"): 1.907e-06, (10, 51, 19, "indefinite"): 9.537e-07,
-            "K": 1.397e-2, "kff": 1.223e-3}
+                 (10, 51, 19, "rescued", RICCATI_REG), (10, 51, 19, "indefinite", RICCATI_REG),
+                 (3, 103, 45, "plain", 1e-6), (8, 103, 45, "rescued", RICCATI_REG),
+                 (8, 103, 45, "indefinite", RICCATI_REG), (3, 128, 64, "plain", 1e-6))
+# H1 with dexterous hands (nq=52, nv=51: nx=103, nu=45), the second model the repo
+# ships; phase 11 solves it with config.yaml's solver (hands_problem).
+HANDS_XML = os.path.join("robots", "h1_description", "mjcf", "h1_with_hand.xml")
+HANDS_EE = ("left_ankle_link", "right_ankle_link")
+HANDS_SIZES = ((25, 0.02), (100, 0.01))  # (N, dt): the flagship's and the long horizon's
 # Phase 8's bars on the batched seed solve against the same device-side solve run on
 # one seed at a time (float32: batched and single products round differently).
 SEED_COST_RTOL, SEED_UBAR_ATOL = 1e-4, 3e-3
@@ -276,6 +299,69 @@ def long_horizon_inputs(device=None):
                 args=[t.contiguous() for t in (A, B, *quad)])
 
 
+def hands_problem(N=25, dt=0.02, device=None, dtype=None):
+    """H1 with hands (nx=103, nu=45) through the library's own entry points:
+    load_robot with the ankles as end effectors (its default contact: 8
+    points on the ankles), config.yaml's gravity and dt = physics_dt = `dt`;
+    build_cost_params with config.yaml's weights; config.yaml's solver as
+    shipped (its engine section: structured_frozen_mass, gn, cascade with
+    pallas_batched, max_iterations 4, tolerance 1e-3) with backward "pallas"
+    at horizon N; as references, the standing state held for N + 1 rows
+    (build_reference_set: CoM and ankle tracks by FK, stance 0); and
+    build_step_plan's plan. A runner.Problem on `device` (the card when
+    None) in `dtype` (float32 when None). tools/port_hands_fixture.py
+    builds the same problem in the JAX package."""
+    import numpy as np
+    import torch
+    from mpc_ilqr_tpu_torch.costs.params import build_cost_params
+    from mpc_ilqr_tpu_torch.ilqr.solver import ILQRConfig
+    from mpc_ilqr_tpu_torch.io.config import load_config
+    from mpc_ilqr_tpu_torch.io.references import build_reference_set
+    from mpc_ilqr_tpu_torch.models.robot import load_robot, standing_state
+    from mpc_ilqr_tpu_torch.mpc import runner
+    from mpc_ilqr_tpu_torch.ops.step_plan import build_step_plan
+
+    app = load_config(os.path.join(ROOT, "config.yaml"))
+    dtype = dtype or torch.float32
+    model = load_robot(os.path.join(ROOT, HANDS_XML), ee_body_names=HANDS_EE,
+                       gravity=tuple(app.mpc.gravity), timestep=dt, dtype=dtype,
+                       device=torch.device("cuda" if device is None else device))
+    cp = build_cost_params(model, app.mpc.cost_weights, app.mpc.constraints, dtype=dtype)
+    e = app.engine
+    cfg = ILQRConfig(N=N, max_iterations=int(e["max_iterations"]), tolerance=float(e["tolerance"]),
+                     cost_mode=e["cost_mode"], line_search=e["line_search"], backward="pallas",
+                     linearization=e["linearization"], rollout_backend=e["rollout_backend"],
+                     ls_backend=e["ls_backend"], quad_mode=e["quad_mode"])
+    q0 = standing_state(model)[:model.nq].cpu().double().numpy()
+    refs = build_reference_set(model, np.tile(q0, (N + 1, 1)), np.zeros((N + 1, model.nv)),
+                               np.zeros((N + 1, len(HANDS_EE))), dtype=dtype)
+    return runner.Problem(model=model, cp=cp, cfg=cfg, refs=refs, app=app,
+                          plan=build_step_plan(model))
+
+
+def hands_inputs(N, dt, device=None):
+    """K4's inputs on the hands problem (hands_problem(N, dt)): A, B and the
+    GN quadratics along the cold-start rollout (K1 on the card) from
+    standing at gravity compensation, as long_horizon_inputs. A dict of
+    `prob`, `x0`, `us`, `xs`, `window`, `A`, `B`, `quad` and `args`."""
+    from mpc_ilqr_tpu_torch.costs.quadratics import quadraticize_gn
+    from mpc_ilqr_tpu_torch.costs.references import extract_window
+    from mpc_ilqr_tpu_torch.dynamics import engine
+    from mpc_ilqr_tpu_torch.ilqr import solver
+    from mpc_ilqr_tpu_torch.models.robot import standing_state
+
+    prob = hands_problem(N, dt, device=device)
+    m, cfg = prob.model, prob.cfg
+    x0 = standing_state(m)
+    us = engine.gravity_comp(m, x0)[None].repeat(N, 1).contiguous()
+    xs = solver.rollout(m, cfg, x0, us, plan=prob.plan)
+    window = extract_window(prob.refs, 0, N)
+    A, B = solver.linearize(m, cfg, xs, us)
+    quad = quadraticize_gn(m, prob.cp, window, xs, us)
+    return dict(prob=prob, x0=x0, us=us, xs=xs, window=window, A=A, B=B, quad=quad,
+                args=[t.contiguous() for t in (A, B, *quad)])
+
+
 def riccati_flops(N, nx, nu, n_bumps):
     """Floating-point operations that the Riccati pass needs, per step: Qx,
     Qu; AᵀVxx and BᵀVxx; one triangle of the symmetric Qxx and Quu + λI and
@@ -324,6 +410,50 @@ def riccati_problem(N, nx, nu, case="plain"):
     elif case == "indefinite":
         luu[RICCATI_T_BAD] = -np.eye(nu)
     return [A, B, lx, lu, lxx, luu]
+
+
+def riccati_err(label, got, want):
+    """max |kernel - plain| where the plain version is finite, after checking
+    that K4 is finite exactly where it is and within RICCATI_ATOL +
+    RICCATI_RTOL |plain| everywhere else."""
+    import torch
+
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            fail(f"{label}: K4 output shape {tuple(g.shape)} != plain {tuple(w.shape)}")
+        if not torch.equal(torch.isfinite(g), torch.isfinite(w)):
+            fail(f"{label}: K4 is not finite exactly where its plain version is not")
+        fin = torch.isfinite(w)
+        d, ref = (g - w).abs()[fin].double(), w.abs()[fin].double()
+        if bool((d > RICCATI_ATOL + RICCATI_RTOL * ref).any()):
+            fail(f"{label}: K4 disagrees with its plain version beyond rtol {RICCATI_RTOL}, "
+                 f"atol {RICCATI_ATOL} (max {float(d.max()):.3e})")
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
+
+
+def riccati_cases(cases, pd_bump):
+    """K4 against its plain version on each (N, nx, nu, case, λ) of `cases`
+    (riccati_problem's inputs, float32 on the card); the largest
+    max|kernel - plain|."""
+    import torch
+    from mpc_ilqr_tpu_torch.ops import riccati
+
+    k4_err = 0.0
+    for N_, nx_, nu_, case, reg_ in cases:
+        args = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+                for a in riccati_problem(N_, nx_, nu_, case)]
+        got = riccati.backward_pass_kernel(*args, reg_, pd_bump)
+        want = riccati.backward_pass_plain(*args, reg_, pd_bump)
+        e = riccati_err(f"K4 ({N_}, {nx_}, {nu_}) {case}", got, want)
+        if case == "rescued" and not bool(torch.isfinite(got[1][RICCATI_T_BAD]).all()):
+            fail("K4: the PD bump did not rescue the zero pivot")
+        k4_err = max(k4_err, e)
+        print(f"K4 riccati_backward ({N_}, {nx_}, {nu_}) {case}: max|kernel - plain| = {e:.3e} "
+              f"(rtol {RICCATI_RTOL}, atol {RICCATI_ATOL}; non-finite at "
+              f"{int((~torch.isfinite(got[1])).any(1).sum())} of {N_} steps, as plain)")
+    return k4_err
 
 
 def bound(n_bytes, n_flops):
@@ -412,7 +542,12 @@ def walking_quality(log_path: str) -> dict:
 def batched_phase(report, smi_line, reset_counts, read_counts):
     """Phase 8: scenarios.batched_linesearch and scenarios.fleet on the card,
     each held to its gates, timed, and its kernel launches recorded in
-    `report` (all four read 0: the batched path takes the plain chains)."""
+    `report` (all four read 0: the batched path takes the plain chains and
+    these configs backward "scan"). Returns what phase 11 compares with:
+    the seed search (`ss`) and its solution (`sol`), the fleet (`fl`), its
+    first chunk's models (`m0`), states (`s0`) and start (`x0s`), that
+    chunk's cold step (`warm`) and the chunk's Riccati inputs at the warm
+    start (`Ab`, `Bb`, `qb`, λ `reg_t`)."""
     import torch
     from torch.func import vmap
 
@@ -568,6 +703,9 @@ def batched_phase(report, smi_line, reset_counts, read_counts):
     print(f"  per chunk: {trips} x (linearize + quadraticize_gn), {1 + trips} x trajectory_cost, "
           f"2 x rollout, {att} x (backward_pass + line search) = {est:.1f} ms of the "
           f"{step_s * 1e3 / (n // chunk):.1f} ms a chunk takes in the fleet step")
+    s0 = controller.MPCState(**{f: part(getattr(fl.states, f)) for f in fleet_mod.STATE_FIELDS})
+    return dict(ss=ss, sol=sol, fl=fl, m0=m0, s0=s0, x0s=x0s, warm=warm, Ab=Ab, Bb=Bb, qb=qb,
+                reg_t=reg_t)
 
 
 def exact_phase(report, smi_line, reset_counts, read_counts):
@@ -984,6 +1122,269 @@ def shards_phase(report, smi_line, reset_counts, read_counts, ctx):
     dist.destroy_process_group()
 
 
+def k4_phase(report, smi_line, reset_counts, read_counts, ctx):
+    """Phase 11: K4 at every input the TPU kernel takes. (a) the random
+    cases past the narrow design's sizes; (b) the hands problem's own inputs
+    at N=25 and N=100 against float64; (c) the hands solve at both sizes
+    against backward "scan"; (d) the batch: a fleet chunk and the seed
+    search with backward "pallas" against phase 8's "scan" runs (`ctx`:
+    batched_phase's return), the chunk under sync-debug "error"; (e) K4's
+    times at the hands sizes and at B=128 (the chunk's own inputs) beside
+    the plain version and the port's loops. Launches into `report`."""
+    import dataclasses
+
+    import torch
+    from torch.func import vmap
+
+    from mpc_ilqr_tpu_torch.costs.quadratics import (CostQuadratics, quadraticize_gn,
+                                                     trajectory_costs)
+    from mpc_ilqr_tpu_torch.costs.references import extract_window
+    from mpc_ilqr_tpu_torch.dynamics import engine
+    from mpc_ilqr_tpu_torch.ilqr import solver
+    from mpc_ilqr_tpu_torch.models.robot import standing_state
+    from mpc_ilqr_tpu_torch.ops import _build
+    from mpc_ilqr_tpu_torch.ops import riccati
+    from mpc_ilqr_tpu_torch.ops import rollout_kernel as rk
+    from mpc_ilqr_tpu_torch.parallel import fleet as fleet_mod
+
+    k4 = report["riccati"]
+    lib = _build.library()
+    for nx_, nu_ in ((103, 45), (riccati.MAX_NX, riccati.MAX_NU)):
+        print(f"K4 at (nx, nu) = ({nx_}, {nu_}): riccati_backward_wide, shared memory per block "
+              f"{lib.mpc_riccati_smem_bytes(nx_, nu_)} bytes, scratch per instance "
+              f"{4 * lib.mpc_riccati_scratch_floats(nx_, nu_)} bytes")
+
+    # (a) the random cases at the sizes past the narrow design's
+    pd = solver.ILQRConfig().pd_bump
+    k4["max_abs_err"] = max(k4["max_abs_err"], riccati_cases(
+        [c for c in RICCATI_CASES if c[1] > 64 or c[2] > 32], pd))
+
+    # (b) the hands problem's own inputs, against float64; (e) their times
+    for N, dt in HANDS_SIZES:
+        li = hands_inputs(N, dt)
+        args, hcfg = li["args"], li["prob"].cfg
+        nx, nu = li["prob"].model.nx, li["prob"].model.nu
+        reg_t = torch.tensor(hcfg.reg_init, device="cuda")
+        run = lambda: riccati.backward_pass_kernel(*args, reg_t, pd)
+        got = run()
+        if riccati.LAST_LAUNCH["nx"] != nx or riccati.LAST_LAUNCH["nu"] != nu:
+            fail(f"K4 hands: the last launch was {riccati.LAST_LAUNCH}")
+        p32 = riccati.backward_pass_plain(*args, reg_t, pd)
+        *p64, bumped = riccati.backward_pass_plain(*[t.double() for t in args], hcfg.reg_init, pd,
+                                                   with_bumps=True)
+        for j, out in enumerate(("K", "kff")):
+            if not bool(torch.isfinite(got[j]).all()):
+                fail(f"K4 hands (N={N}): non-finite {out}")
+            e_k = float((got[j].double() - p64[j]).abs().max())
+            e_p = float((p32[j].double() - p64[j]).abs().max())
+            bar = RICCATI_ATOL + 2.0 * e_p
+            print(f"K4 on the hands inputs (N={N}, nx={nx}, nu={nu}), {out}: |kernel-plain64| "
+                  f"{e_k:.3e}, |plain32-plain64| {e_p:.3e} (bar {bar:.3e}); max |{out}| "
+                  f"{float(p64[j].abs().max()):.3e}")
+            if not e_k <= bar:
+                fail(f"K4 hands (N={N}) {out} further from float64 than float32 allows "
+                     f"({e_k:.3e} > {bar:.3e})")
+            k4[f"hands_n{N}_{out}_err_vs_f64"] = e_k
+            k4[f"hands_n{N}_{out}_plain32_err_vs_f64"] = e_p
+        quad_t = CostQuadratics(*args[2:])
+        ms = event_ms(run, 5)
+        plain_ms = event_ms(lambda: riccati.backward_pass_plain(*args, reg_t, pd), 1)
+        loop_ms = event_ms(lambda: solver.backward_pass(args[0], args[1], quad_t, reg_t, pd), 2)
+        n_bytes, flops = riccati_bytes(N, nx, nu), riccati_flops(N, nx, nu, int(bumped.sum()))
+        bound_ms, bound_by = bound(n_bytes, flops)
+        print(f"  N={N} ({smi_line}): K4 {ms:.4f} ms/launch (plain {plain_ms:.3f} ms; port loop "
+              f"solver.backward_pass {loop_ms:.3f} ms; bound {bound_ms:.6e} ms by {bound_by}: "
+              f"{n_bytes} bytes, {flops} flop; PD bumps at {bumped.nonzero().flatten().tolist()})")
+        k4.update({f"ms_hands_n{N}": ms, f"plain_ms_hands_n{N}": plain_ms,
+                   f"port_loop_ms_hands_n{N}": loop_ms, f"bound_ms_hands_n{N}": bound_ms})
+
+    # (c) the hands solve at both sizes, "pallas" (K4) against "scan"
+    for N, dt in HANDS_SIZES:
+        prob = hands_problem(N, dt)
+        m, hcfg = prob.model, prob.cfg
+        x0 = standing_state(m)
+        u0 = engine.gravity_comp(m, x0)[None].repeat(N, 1).contiguous()
+        win = extract_window(prob.refs, 0, N)
+        go = lambda c: solver.solve(m, prob.cp, c, x0, win, u0, plan=prob.plan)
+        reset_counts()
+        t1 = time.perf_counter()
+        sol = go(hcfg)
+        counts = read_counts()
+        first_s = time.perf_counter() - t1
+        scan = go(dataclasses.replace(hcfg, backward="scan"))
+        torch.cuda.synchronize()
+        d_cost = abs(float(sol.cost) - float(scan.cost)) / max(1.0, abs(float(scan.cost)))
+        label = f"hands_n{N}"
+        print(f"{label}: N={N}, dt {dt}, {hcfg.line_search} ({hcfg.rollout_backend}, "
+              f"{hcfg.ls_backend}), backward {hcfg.backward!r}: iterations {sol.iterations}, "
+              f"solve_ok {sol.success}, attempts {sol.attempts}, cost {float(sol.cost):.6f}; "
+              f"backward 'scan': iterations {scan.iterations}, solve_ok {scan.success}, cost "
+              f"{float(scan.cost):.6f} (relative gap {d_cost:.3e}, bar {SEED_COST_RTOL}); "
+              f"launches {counts}; first run {first_s:.2f} s")
+        outs = (sol.xbar, sol.ubar, sol.K, sol.kff, sol.cost)
+        if not all(bool(torch.isfinite(t).all()) for t in outs):
+            fail(f"{label}: non-finite states, controls, gains or cost")
+        if (sol.iterations, sol.success) != (scan.iterations, scan.success):
+            fail(f"{label}: iterations / solve_ok {sol.iterations} / {sol.success} against "
+                 f"'scan' {scan.iterations} / {scan.success}")
+        if not d_cost <= SEED_COST_RTOL:
+            fail(f"{label}: final cost {float(sol.cost)} parts from 'scan' {float(scan.cost)}")
+        if counts["riccati"] != sol.attempts:
+            fail(f"{label}: K4 launched {counts['riccati']} times for {sol.attempts} backward "
+                 f"passes")
+        for name in ("rollout", "linesearch"):
+            if counts[name] < 1:
+                fail(f"{label}: {name} was not launched")
+        for name in report:
+            report[name]["launches_by_path"][label] = counts[name]
+        k4["launches"] += counts["riccati"]
+        secs, _ = host_seconds(lambda: go(hcfg), 1)
+        print(f"{label} ({smi_line}): {secs * 1e3 / sol.iterations:.2f} ms per iteration (host "
+              f"clock, one warm solve of {sol.iterations} iterations: {secs * 1e3:.1f} ms)")
+        k4[f"hands_n{N}_ms_per_iteration"] = secs * 1e3 / sol.iterations
+    # Where a hands iteration's time goes at N=100, on (b)'s inputs.
+    xb, ub = li["xs"], li["us"]
+    Kf, kf = riccati.backward_pass_kernel(*args, reg_t, pd)
+    al = torch.tensor(hcfg.alphas, device="cuda")
+    hp = li["prob"]
+    breakdown({
+        "linearize (step_and_jac, vmapped)": lambda: solver.linearize(hp.model, hcfg, xb, ub),
+        "quadraticize_gn": lambda: quadraticize_gn(hp.model, hp.cp, li["window"], xb, ub),
+        "K4 riccati_backward_wide": lambda: riccati.backward_pass_kernel(*args, reg_t, pd),
+        "backward_pass (port loop)": lambda: solver.backward_pass(args[0], args[1], quad_t,
+                                                                  reg_t, pd),
+        "trajectory_costs (1 candidate)": lambda: trajectory_costs(
+            hp.model, hp.cp, li["window"], xb[None], ub[None]),
+        "K1 rollout_kernel": lambda: rk.rollout_kernel(hp.model, hp.plan, li["x0"], ub),
+        "K2 linesearch (A=1)": lambda: rk.linesearch_rollout_kernel(
+            hp.model, hp.plan, li["x0"], xb, ub, Kf, kf, al[:1]),
+        "K3 linesearch_batched (A=7)": lambda: rk.linesearch_rollout_kernel_batched(
+            hp.model, hp.plan, li["x0"], xb, ub, Kf, kf, al[1:]),
+    }, f"hands, N={xb.shape[0] - 1}", reps=1)
+
+    # (d) the batch: one fleet chunk and the seed search with backward "pallas"
+    fl, ss = ctx["fl"], ctx["ss"]
+    fp, chunk = fl.prob, fl.chunk
+    fcfg = dataclasses.replace(fp.cfg, backward="pallas")
+    cfgb = solver.batched_config(fcfg)
+    attempts_run = cfgb.max_iterations * (1 if cfgb.inner_attempts == 1 else 2)
+    reset_counts()
+    t1 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, u, d = fleet_mod.fleet_step_once(ctx["m0"], fp.cp, fcfg, fp.refs, ctx["s0"], ctx["x0s"])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = read_counts()
+    chunk_s = time.perf_counter() - t1
+    last = dict(riccati.LAST_LAUNCH)
+    _, u_s, d_s = ctx["warm"]
+    gap_u = float((u - u_s).abs().max())
+    mean_p, mean_s = float(d.cost.double().mean()), float(d_s.cost.double().mean())
+    gap_c = abs(mean_p - mean_s) / max(1.0, abs(mean_s))
+    print(f"fleet chunk, backward 'pallas' ({smi_line}): {chunk} instances under sync debug mode "
+          f"'error' (no host sync), {chunk_s * 1e3:.1f} ms (host clock; phase 8's 'scan' chunk "
+          f"beside it in its lines); solve_ok {int(d.solve_ok.sum())} ('scan' "
+          f"{int(d_s.solve_ok.sum())}) of {chunk}, mean cost {mean_p:.6f} ('scan' {mean_s:.6f}, "
+          f"relative gap {gap_c:.3e}, bar {SEED_COST_RTOL}), max|u - u_scan| {gap_u:.3e} (bar "
+          f"{SEED_UBAR_ATOL}); K4 launches {counts['riccati']} ({attempts_run} attempts run), "
+          f"the last with batch {last['batch']}; launches {counts}")
+    if not bool(torch.isfinite(u).all()):
+        fail("fleet 'pallas': non-finite controls")
+    if not (int(d.solve_ok.sum()) == int(d_s.solve_ok.sum()) and gap_u <= SEED_UBAR_ATOL
+            and gap_c <= SEED_COST_RTOL):
+        fail("fleet 'pallas': the chunk parts from the same chunk with 'scan'")
+    if counts["riccati"] != attempts_run or last["batch"] != chunk:
+        fail(f"fleet 'pallas': K4 launched {counts['riccati']} times (want {attempts_run}), "
+             f"the last with batch {last['batch']} (want {chunk})")
+    for name in report:
+        report[name]["launches_by_path"]["fleet_pallas"] = counts[name]
+    k4["launches"] += counts["riccati"]
+
+    sp = ss.prob
+    scfg = dataclasses.replace(sp.cfg, backward="pallas")
+    reset_counts()
+    t1 = time.perf_counter()
+    sol = solver.solve_batched(sp.model, sp.cp, scfg, ss.x0, ss.window, ss.seeds)
+    counts = read_counts()
+    secs = time.perf_counter() - t1
+    want = ctx["sol"]
+    n_seeds = ss.seeds.shape[0]
+    gap_c = float(((sol.cost.double() - want.cost.double()).abs()
+                   / want.cost.double().abs().clamp(min=1.0)).max())
+    gap_u = float((sol.ubar - want.ubar).abs().max())
+    sb = solver.batched_config(scfg)
+    runs = sb.max_iterations * (1 if sb.inner_attempts == 1 else 2)
+    print(f"batched_linesearch, backward 'pallas' ({smi_line}): {secs * 1e3:.2f} ms per batched "
+          f"solve (host clock, one call); success {int(sol.success.sum())} ('scan' "
+          f"{int(want.success.sum())}) of {n_seeds}, relative cost gap {gap_c:.3e} (bar "
+          f"{SEED_COST_RTOL}), max|ubar gap| {gap_u:.3e} (bar {SEED_UBAR_ATOL}); K4 launches "
+          f"{counts['riccati']} ({runs} attempts run), the last with batch "
+          f"{riccati.LAST_LAUNCH['batch']}")
+    if not bool(torch.isfinite(sol.cost).all()):
+        fail("batched_linesearch 'pallas': non-finite cost")
+    if not (int(sol.success.sum()) == int(want.success.sum()) and gap_c <= SEED_COST_RTOL
+            and gap_u <= SEED_UBAR_ATOL):
+        fail("batched_linesearch 'pallas': the seeds part from the same search with 'scan'")
+    if counts["riccati"] != runs or riccati.LAST_LAUNCH["batch"] != n_seeds:
+        fail(f"batched_linesearch 'pallas': K4 launched {counts['riccati']} times (want {runs}), "
+             f"the last with batch {riccati.LAST_LAUNCH['batch']} (want {n_seeds})")
+    for name in report:
+        report[name]["launches_by_path"]["batched_linesearch_pallas"] = counts[name]
+    k4["launches"] += counts["riccati"]
+
+    # (e) B=128 at H1's sizes: the fleet chunk's own inputs at the warm start. Each
+    # instance's gains are its own single launch's to the bit; on config.yaml's contact
+    # two float32 passes part by more than 2e-4, so the batch is held to float64 no
+    # further than float32 allows, as phase 5 holds the long-horizon inputs.
+    Ab, Bb, qb, reg_b = ctx["Ab"], ctx["Bb"], ctx["qb"], ctx["reg_t"]
+    n, N, nx, nu = Ab.shape[0], Ab.shape[1], Ab.shape[-1], Bb.shape[-1]
+    ins = tuple(t.contiguous() for t in (Ab, Bb, *qb))
+    batch_k4 = lambda: vmap(lambda *a: riccati.backward_pass_kernel(*a, reg_b, pd))(*ins)
+    got = batch_k4()
+    for i in range(4):
+        one = riccati.backward_pass_kernel(*(t[i] for t in ins), reg_b, pd)
+        if not all(torch.equal(g[i], o) for g, o in zip(got, one)):
+            fail(f"K4 batch of {n}: instance {i} differs from its own single launch")
+    p32 = vmap(lambda *a: riccati.backward_pass_plain(*a, reg_b, pd))(*ins)
+    *p64, bumped = vmap(lambda *a: riccati.backward_pass_plain(*a, reg_b.double(), pd,
+                                                               with_bumps=True))(
+        *(t.double() for t in ins))
+    for j, out in enumerate(("K", "kff")):
+        if not bool(torch.isfinite(got[j]).all()):
+            fail(f"K4 batch of {n}: non-finite {out}")
+        e_k = float((got[j].double() - p64[j]).abs().max())
+        e_p = float((p32[j].double() - p64[j]).abs().max())
+        bar = RICCATI_ATOL + 2.0 * e_p
+        print(f"K4 batch of {n}, {out}: |kernel-plain64| {e_k:.3e}, |plain32-plain64| {e_p:.3e} "
+              f"(bar {bar:.3e}); max|kernel - plain32| "
+              f"{float((got[j] - p32[j]).abs().max()):.3e}; max |{out}| "
+              f"{float(p64[j].abs().max()):.3e}; instances 0-3 equal to their single launches")
+        if not e_k <= bar:
+            fail(f"K4 batch of {n}: {out} further from float64 than float32 allows ({e_k:.3e} > "
+                 f"{bar:.3e})")
+        k4[f"batch128_n25_{out}_err_vs_f64"] = e_k
+        k4[f"batch128_n25_{out}_plain32_err_vs_f64"] = e_p
+    ms = event_ms(batch_k4, 10)
+    plain_ms = event_ms(lambda: vmap(lambda *a: riccati.backward_pass_plain(*a, reg_b, pd))(*ins),
+                        1)
+    loop_ms = event_ms(lambda: vmap(lambda A, B, q: solver.backward_pass(A, B, q, reg_b, pd))(
+        Ab, Bb, qb), 1)
+    n_bytes = n * riccati_bytes(N, nx, nu)
+    flops = n * riccati_flops(N, nx, nu, 0) + int(bumped.sum()) * (riccati_flops(N, nx, nu, 1)
+                                                                   - riccati_flops(N, nx, nu, 0))
+    bound_ms, bound_by = bound(n_bytes, flops)
+    print(f"K4 batch of {n} (H1, N={N}, the fleet chunk's inputs; {smi_line}): {ms:.4f} "
+          f"ms/launch (one instance at N=25: {k4['ms_n25']:.4f}; vmapped plain {plain_ms:.3f} "
+          f"ms; vmapped "
+          f"solver.backward_pass {loop_ms:.3f} ms; bound {bound_ms:.6e} ms by {bound_by}: "
+          f"{n_bytes} bytes, {flops} flop; PD bumps {int(bumped.sum())})")
+    k4.update(takes=f"nx <= {riccati.MAX_NX}, nu <= {riccati.MAX_NU}; a batch of instances in "
+                    f"one launch (one block each)", ms_batch128_n25=ms,
+              plain_ms_batch128_n25=plain_ms, vmapped_loop_ms_batch128_n25=loop_ms,
+              bound_ms_batch128_n25=bound_ms)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1209,38 +1610,7 @@ def main() -> int:
     print(f"K4 shared memory per block (H1, nx={nx}, nu={nu}): "
           f"{lib.mpc_riccati_smem_bytes(nx, nu)} bytes")
 
-    def riccati_err(label, got, want):
-        """max |kernel - plain| where the plain version is finite, after
-        checking the kernel is finite exactly where it is and within
-        atol + rtol |plain| everywhere else."""
-        err = 0.0
-        for g, w in zip(got, want):
-            if g.shape != w.shape:
-                fail(f"{label}: K4 output shape {tuple(g.shape)} != plain {tuple(w.shape)}")
-            if not torch.equal(torch.isfinite(g), torch.isfinite(w)):
-                fail(f"{label}: K4 is not finite exactly where its plain version is not")
-            fin = torch.isfinite(w)
-            d, ref = (g - w).abs()[fin].double(), w.abs()[fin].double()
-            if bool((d > RICCATI_ATOL + RICCATI_RTOL * ref).any()):
-                fail(f"{label}: K4 disagrees with its plain version beyond rtol {RICCATI_RTOL}, "
-                     f"atol {RICCATI_ATOL} (max {float(d.max()):.3e})")
-            err = max(err, float(d.max()) if d.numel() else 0.0)
-        return err
-
-    k4_err = 0.0
-    for N_, nx_, nu_, case, reg_ in RICCATI_CASES:
-        args = [torch.as_tensor(a, dtype=torch.float32, device=dev)
-                for a in riccati_problem(N_, nx_, nu_, case)]
-        got = riccati.backward_pass_kernel(*args, reg_, cfg.pd_bump)
-        want = riccati.backward_pass_plain(*args, reg_, cfg.pd_bump)
-        e = riccati_err(f"K4 ({N_}, {nx_}, {nu_}) {case}", got, want)
-        if case == "rescued" and not bool(torch.isfinite(got[1][RICCATI_T_BAD]).all()):
-            fail("K4: the PD bump did not rescue the zero pivot")
-        k4_err = max(k4_err, e)
-        print(f"K4 riccati_backward ({N_}, {nx_}, {nu_}) {case}: max|kernel - plain| = {e:.3e} "
-              f"(first design: {FIRST_K4[(N_, nx_, nu_, case)]:.3e}; rtol {RICCATI_RTOL}, atol "
-              f"{RICCATI_ATOL}; non-finite at {int((~torch.isfinite(got[1])).any(1).sum())} of "
-              f"{N_} steps, as plain)")
+    k4_err = riccati_cases([c for c in RICCATI_CASES if c[1] <= 64 and c[2] <= 32], cfg.pd_bump)
 
     # The long-horizon path's own inputs: A, B and the GN quadratics at N=100 along the
     # cold-start rollout from standing. The value function there is conditioned like the
@@ -1254,16 +1624,16 @@ def main() -> int:
     got = riccati.backward_pass_kernel(*lh_args, reg_t, pd)
     p32 = riccati.backward_pass_plain(*lh_args, reg_t, pd)
     a64 = [t.double() for t in lh_args]
-    bump_steps = []  # the work this data needs: the steps where the bump fires
-    p64 = riccati.backward_pass_plain(*a64, lcfg.reg_init, pd, bumps=bump_steps)
+    *p64, bumped = riccati.backward_pass_plain(*a64, lcfg.reg_init, pd, with_bumps=True)
+    bump_steps = bumped.nonzero().flatten().tolist()  # the work this data needs
     # K (|K| up to ~1e3) and kff have float32 floors far apart, so each is held to its own bar.
     lh_err = {}
     for j, out in enumerate(("K", "kff")):
         e_k, e_p, e_kp = max_err(got[j], p64[j]), max_err(p32[j], p64[j]), max_err(got[j], p32[j])
         bar = RICCATI_ATOL + 2.0 * e_p
         lh_err[out] = (e_k, e_p)
-        print(f"K4 on the long-horizon inputs (N={lcfg.N}), {out}: |kernel-plain64| {e_k:.3e} "
-              f"(first design: {FIRST_K4[out]:.3e}), |plain32-plain64| {e_p:.3e}, "
+        print(f"K4 on the long-horizon inputs (N={lcfg.N}), {out}: |kernel-plain64| {e_k:.3e}, "
+              f"|plain32-plain64| {e_p:.3e}, "
               f"|kernel-plain32| {e_kp:.3e} (bar {bar:.3e}); max |{out}| "
               f"{float(p64[j].abs().max()):.3e}")
         if not e_k <= bar:
@@ -1470,7 +1840,7 @@ def main() -> int:
 
     # ---- 8. batched: the 16-alpha x 8-seed search and the 1024-instance fleet ----
     t0 = time.perf_counter()
-    batched_phase(report, smi_line, reset_counts, read_counts)
+    batched = batched_phase(report, smi_line, reset_counts, read_counts)
     phase("batched", t0)
 
     # ---- 9. the reference's exact-derivative solver ----------------------------
@@ -1484,6 +1854,11 @@ def main() -> int:
         standing=(model, cp, cfg, refs, plan), lh_args=lh_args, A=A_, B=B_, quad=lq, reg=reg_t,
         pd=pd, p64=p64, k4_err={k: v[0] for k, v in lh_err.items()}, lh_ms=lh_ms))
     phase("shards", t0)
+
+    # ---- 11. K4 at every input: the hands model and the batch grid ------------
+    t0 = time.perf_counter()
+    k4_phase(report, smi_line, reset_counts, read_counts, batched)
+    phase("k4 at every input", t0)
 
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -1,10 +1,18 @@
 // The Riccati backward pass for Hopper (sm_90a): the whole recursion
-// t = N-1 .. 0 in one launch, one thread block, the value function (Vx, Vxx)
-// in shared memory for the whole pass.
+// t = N-1 .. 0 in one launch, one thread block per instance, the value
+// function (Vx, Vxx) in shared memory for the whole pass.
 //
-//   riccati_backward  replaces the TPU kernel backward_pass_pallas
-//                     (mpc_ilqr_tpu/ops/riccati.py:143; body _riccati_kernel
-//                     :94, _chol_masked :43, _solve_chol :67).
+//   riccati_backward       replaces the TPU kernel backward_pass_pallas
+//                          (mpc_ilqr_tpu/ops/riccati.py:143; body
+//                          _riccati_kernel :94, _chol_masked :43,
+//                          _solve_chol :67) for nx <= 64, nu <= 32
+//   riccati_backward_wide  the same for every larger size up to
+//                          nx <= kMaxNxW = 128, nu <= kMaxNuW = 64
+//
+// A launch covers a batch of instances, one block each (gridDim.x = batch):
+// block b reads its instance's inputs at stride, its λ from reg[b], and
+// takes its own bump decision, as vmap gives the Pallas kernel one grid step
+// per instance. The single-instance call is a batch of one.
 //
 // At each t it forms Qx = lx + AᵀVx, Qu = lu + BᵀVx, Qxx = lxx + AᵀVxxA,
 // Qxu = AᵀVxxB and Quu = luu + BᵀVxxB + λI; factors Quu by Cholesky, and
@@ -14,8 +22,8 @@
 // T = Qxx + KᵀQuuK + KᵀQxuᵀ + QxuK. The TPU kernel's padding to multiples
 // of 8 and its masked-matvec pivot access were Mosaic constraints (no
 // dynamic value indexing); here the sizes are runtime ints and the pivots
-// are indexed. Limits: nx ≤ kMaxNx, nu ≤ kMaxNu (the Cholesky runs in one
-// warp, a lane per row); mpc_riccati_backward refuses larger sizes.
+// are indexed. mpc_riccati_backward_batched refuses sizes above the wide
+// design's limits.
 //
 // Non-finite behaviour is the reference's: a non-positive pivot gives
 // rsqrtf's NaN or inf, which propagates into K, k and the value function,
@@ -65,7 +73,37 @@
 // reading from 1.397e-2 to 1.837e-2 (bar 3.122e-2). The factor and
 // solve are instantiated for nu = 19 (H1, every guard folds away) and once,
 // generically, for every other nu ≤ kMaxNu; everything else takes runtime
-// sizes.
+// sizes. Shared memory (smem_floats): 47,488 floats = 189,952 B at the
+// limit (64, 32); 27,588 floats = 110,352 B for H1 (NXp=52, SA=52, NUp=20,
+// SU=20).
+//
+// The wide design. At nx=103, nu=45 (H1 with hands) the layout above needs
+// 456,032 B, twice what a block may use (232,448 B), so larger sizes take a
+// second kernel with the same phases and the same tile functions, and
+// three changes of layout (smem_floats_wide):
+//   - the knot's A, B, lxx, luu, lx, lu are staged into a per-block scratch
+//     buffer in global memory (two knots, padded and 16-byte aligned as the
+//     shared buffers are, zeroed at the start of the launch) and read from
+//     there, through L1 and L2 (13.1 MB for the hands pass at N=100, inside
+//     the 50 MB L2);
+//   - Qxx is written over [Vxx | Vx], which phase 1 has consumed, and the
+//     update writes the new value function over Qxx in place: each round of
+//     work items reads its T starting values, meets the others at a block
+//     barrier, then writes (an entry is read and written by one work item,
+//     or by the two halves of one pair, which share a round);
+//   - [K | k] and P take the place of AᵀVxx once phase 2 is done (phase 2
+//     forms every Qxx tile, none is left to phase 3), and L that of BᵀVxx
+//     once Quu is formed.
+// The factor runs in one warp with two rows per lane (rows i and i+32 in
+// lane i, so nu ≤ 64); a pivot's diagonal comes from its owning lane by one
+// shuffle (that lane's own value, the bits the carried diagonals give), the
+// rest is the narrow factor: one rsqrt, one store of the column (zeros
+// above the pivot and past nu), one __syncwarp, broadcast loads; the bump
+// stays one warp-wide decision. The solve is the narrow one instantiated at
+// nu = kMaxNuW with L's column stride 64. Shared memory at the limit
+// (128, 64): 54,656 floats = 218,624 B; hands (NXp=104, SA=104, NUp=48,
+// SU=48): 34,024 floats = 136,096 B; scratch 2 × (2·NXp·SA + NXp·SU +
+// NUp·SU + NXp + NUp) floats per instance (232,640 B for hands).
 #include <cuda_runtime.h>
 
 namespace {
@@ -74,6 +112,9 @@ constexpr int kThreads = 256;
 constexpr int kMaxNx = 64;
 constexpr int kMaxNu = 32;
 constexpr int kLs = kMaxNu;         // L's column stride
+constexpr int kMaxNxW = 128;        // the wide design's limits
+constexpr int kMaxNuW = 64;
+constexpr int kLsW = kMaxNuW;       // L's column stride there
 constexpr int kQuuThreads = 128;    // warps 0-3 form Quu
 constexpr int kQTiles = 352;        // Qxu/Qxx tiles formed beside the factor
 constexpr int kStageRows = 16;      // rows a warp stages per round
@@ -149,60 +190,64 @@ __device__ __forceinline__ void quu_sync() {
   asm volatile("bar.sync 2, %0;\n" ::"r"(kQuuThreads) : "memory");
 }
 
-// Knot t's inputs (A_t, B_t, lxx_t, luu_t, lx_t, lu_t) into buffer t & 1 by
-// nw warps, the w-th of them first. Their rows form one list (3nx + nu + 2
-// rows of at most 64 floats, lanes along a row); a warp takes kStageRows
-// rows at a time and issues all their loads before its shared stores. (A
-// knot's slices are only 4-byte aligned, so 16-byte copies and TMA do not
-// apply.)
-__device__ __forceinline__ void stage_knot(const Smem& s, const Dims& d, int t, int w, int nw,
+// Knot t's inputs (A_t, B_t, lxx_t, luu_t, lx_t, lu_t) into buffer b by nw
+// warps, the w-th of them first; tA and tX are the knot's indices into the
+// arrays with N and with N + 1 knots per instance (b·N + t, b·(N+1) + t for
+// instance b). Their rows form one list (3nx + nu + 2 rows of at most
+// 32·kChunks floats, lanes along a row); a warp takes kRows rows at a time
+// and issues all their loads before its stores. (A knot's slices are only
+// 4-byte aligned, so 16-byte copies and TMA do not apply.)
+template <int kRows = kStageRows, int kChunks = 2>
+__device__ __forceinline__ void stage_knot(const Smem& s, const Dims& d, int b, size_t tA,
+                                           size_t tX, int w, int nw,
                                            const float* __restrict__ A,
                                            const float* __restrict__ B,
                                            const float* __restrict__ lx,
                                            const float* __restrict__ lu,
                                            const float* __restrict__ lxx,
                                            const float* __restrict__ luu) {
-  const int nx = d.nx, nu = d.nu, b = t & 1, lane = threadIdx.x & 31;
+  const int nx = d.nx, nu = d.nu, lane = threadIdx.x & 31;
   const int rows = 3 * nx + nu + 2;
-  for (int q0 = w * kStageRows; q0 < rows; q0 += nw * kStageRows) {
-    float v[kStageRows][2];
-    float* dst[kStageRows];
-    int cols[kStageRows];
+  for (int q0 = w * kRows; q0 < rows; q0 += nw * kRows) {
+    float v[kRows][kChunks];
+    float* dst[kRows];
+    int cols[kRows];
 #pragma unroll
-    for (int m = 0; m < kStageRows; ++m) {
+    for (int m = 0; m < kRows; ++m) {
       const int q = q0 + m;
-      const float* src = lu + (size_t)t * nu;
+      const float* src = lu + tA * nu;
       dst[m] = s.lu + b * d.NUp;
       cols[m] = q == rows - 1 ? nu : 0;
       if (q < nx) {
-        src = A + ((size_t)t * nx + q) * nx;
+        src = A + (tA * nx + q) * nx;
         dst[m] = s.A + (b * d.NXp + q) * d.SA;
         cols[m] = nx;
       } else if (q < 2 * nx) {
-        src = B + ((size_t)t * nx + q - nx) * nu;
+        src = B + (tA * nx + q - nx) * nu;
         dst[m] = s.B + (b * d.NXp + q - nx) * d.SU;
         cols[m] = nu;
       } else if (q < 3 * nx) {
-        src = lxx + ((size_t)t * nx + q - 2 * nx) * nx;
+        src = lxx + (tX * nx + q - 2 * nx) * nx;
         dst[m] = s.lxx + (b * d.NXp + q - 2 * nx) * d.SA;
         cols[m] = nx;
       } else if (q < 3 * nx + nu) {
-        src = luu + ((size_t)t * nu + q - 3 * nx) * nu;
+        src = luu + (tA * nu + q - 3 * nx) * nu;
         dst[m] = s.luu + (b * d.NUp + q - 3 * nx) * d.SU;
         cols[m] = nu;
       } else if (q == 3 * nx + nu) {
-        src = lx + (size_t)t * nx;
+        src = lx + tX * nx;
         dst[m] = s.lx + b * d.NXp;
         cols[m] = nx;
       }
-      v[m][0] = lane < cols[m] ? src[lane] : 0.f;
-      v[m][1] = lane + 32 < cols[m] ? src[lane + 32] : 0.f;
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+        v[m][c] = lane + 32 * c < cols[m] ? src[lane + 32 * c] : 0.f;
     }
 #pragma unroll
-    for (int m = 0; m < kStageRows; ++m) {
-      if (lane < cols[m]) dst[m][lane] = v[m][0];
-      if (lane + 32 < cols[m]) dst[m][lane + 32] = v[m][1];
-    }
+    for (int m = 0; m < kRows; ++m)
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+        if (lane + 32 * c < cols[m]) dst[m][lane + 32 * c] = v[m][c];
   }
 }
 
@@ -360,6 +405,48 @@ __device__ __forceinline__ bool factor(const float* Quu, float* L, int nu_rt, in
   return __any_sync(kFull, bad);
 }
 
+// The wide design's factor of Quu (nu ≤ kMaxNuW) by warp 0: lane i holds
+// rows i and i + 32 of S in registers. Pivot k takes its diagonal from the
+// lane that owns row k (one shuffle: that lane's value, updated by the same
+// FMAs the narrow factor's carried diagonals take), then as the narrow
+// factor: one rsqrt, the column stored (L_ik at L[k·kLsW + i], zero above
+// the pivot and past nu, so every later sum over it is exact zeros there),
+// one __syncwarp, broadcast loads. Returns to every lane whether any entry
+// of the factor is not finite, one value for the whole warp.
+__device__ __forceinline__ bool factor_wide(const float* Quu, float* L, int nu, int SU) {
+  constexpr int kNu4 = kMaxNuW;
+  const int i = threadIdx.x;
+  float s0[kNu4], s1[kNu4];
+#pragma unroll
+  for (int q = 0; q < kNu4; q += 4) {
+    float4 r0 = make_float4(0.f, 0.f, 0.f, 0.f), r1 = r0;
+    if (q < nu && i < nu) r0 = ld4(Quu + i * SU + q);
+    if (q < nu && i + 32 < nu) r1 = ld4(Quu + (i + 32) * SU + q);
+    s0[q] = r0.x, s0[q + 1] = r0.y, s0[q + 2] = r0.z, s0[q + 3] = r0.w;
+    s1[q] = r1.x, s1[q + 1] = r1.y, s1[q + 2] = r1.z, s1[q + 3] = r1.w;
+  }
+  bool bad = false;
+#pragma unroll
+  for (int k = 0; k < kMaxNuW; ++k) {
+    if (k < nu) {  // warp-uniform
+      const float r = rsqrtf(__shfl_sync(kFull, k < 32 ? s0[k] : s1[k], k & 31));
+      const float l0 = s0[k] * r, l1 = s1[k] * r;
+      const bool v0 = i >= k && i < nu, v1 = i + 32 >= k && i + 32 < nu;
+      L[k * kLsW + i] = v0 ? l0 : 0.f;
+      L[k * kLsW + i + 32] = v1 ? l1 : 0.f;
+      bad |= (v0 && !isfinite(l0)) || (v1 && !isfinite(l1));
+      __syncwarp();
+#pragma unroll
+      for (int j = k + 1; j < kNu4; ++j) {
+        const float ljk = L[k * kLsW + j];
+        s0[j] = fmaf(-l0, ljk, s0[j]);
+        s1[j] = fmaf(-l1, ljk, s1[j]);
+      }
+    }
+  }
+  return __any_sync(kFull, bad);
+}
+
 // Phase 3 (thread c ≤ nx): column c of X = −(L Lᵀ)⁻¹ R, the column in
 // registers, L read as broadcasts, each step ending in an IEEE division by
 // L_kk (as the reference). The forward substitution goes a column of L at
@@ -371,7 +458,7 @@ __device__ __forceinline__ bool factor(const float* Quu, float* L, int nu_rt, in
 // from Qu, the others Quu·K summed from 0 plus Qxuᵀ. Entries of x past nu
 // stay 0 (the forward pass is guarded there), as do L's and Quu's, so the
 // sums over them add exact zeros.
-template <int kNu, bool kFixed>
+template <int kNu, bool kFixed, int kL = kLs>
 __device__ __forceinline__ void phase_solve(const Smem& s, const Dims& d) {
   constexpr int kNu4 = round4(kNu);
   const int c = threadIdx.x, SU = d.SU, SA = d.SA;
@@ -382,18 +469,18 @@ __device__ __forceinline__ void phase_solve(const Smem& s, const Dims& d) {
 #pragma unroll
   for (int k = 0; k < kNu; ++k)
     if (k < nu) {
-      x[k] = x[k] / s.L[k * kLs + k];
+      x[k] = x[k] / s.L[k * kL + k];
 #pragma unroll
       for (int j = k + 1; j < kNu; ++j)
-        if (j < nu) x[j] = fmaf(-s.L[k * kLs + j], x[k], x[j]);
+        if (j < nu) x[j] = fmaf(-s.L[k * kL + j], x[k], x[j]);
     }
 #pragma unroll
   for (int k = kNu - 1; k >= 0; --k)
     if (k < nu) {
       float v = x[k];
 #pragma unroll
-      for (int j = k + 1; j < kNu; ++j) v = fmaf(-s.L[k * kLs + j], x[j], v);
-      x[k] = v / s.L[k * kLs + k];
+      for (int j = k + 1; j < kNu; ++j) v = fmaf(-s.L[k * kL + j], x[j], v);
+      x[k] = v / s.L[k * kL + k];
     }
 #pragma unroll
   for (int k = 0; k < kNu4; ++k) {
@@ -422,15 +509,15 @@ __device__ __forceinline__ void phase_solve(const Smem& s, const Dims& d) {
   }
 }
 
-// K_t and k_t from X (all threads, coalesced).
-__device__ __forceinline__ void write_gains(const Smem& s, const Dims& d, int t,
+// K_t and k_t from X (all threads, coalesced); tA as in stage_knot.
+__device__ __forceinline__ void write_gains(const Smem& s, const Dims& d, size_t tA,
                                             float* __restrict__ K, float* __restrict__ kff) {
   const int nx = d.nx, nu = d.nu;
   for (int e = threadIdx.x; e < nu * (nx + 1); e += kThreads) {
     const int r = e / (nx + 1), c = e - r * (nx + 1);
     const float v = s.X[r * d.SA + c];
-    if (c < nx) K[((size_t)t * nu + r) * nx + c] = v;
-    else kff[(size_t)t * nu + r] = v;
+    if (c < nx) K[(tA * nu + r) * nx + c] = v;
+    else kff[tA * nu + r] = v;
   }
 }
 
@@ -495,6 +582,68 @@ __device__ __forceinline__ void phase_update(const Smem& s, const Dims& d) {
   }
 }
 
+// Phase 4 of the wide design: phase_update's work items, with T's starting
+// values read from Qxx where the new [Vxx | Vx] is written. Each round of
+// kThreads items reads its starting values, meets the block at a barrier,
+// then sums and writes. An off-diagonal entry belongs to one item, and the
+// two halves of a diagonal tile's pair (items 2p, 2p+1) share a round, so
+// no write lands on a value another item has yet to read.
+__device__ __forceinline__ void phase_update_inplace(const Smem& s, const Dims& d) {
+  const int RG = d.NXp / 4, G = d.SA / 4, SA = d.SA;
+  const int n_items = 2 * (RG * G - RG * (RG - 1) / 2);
+  for (int w0 = 0; w0 < n_items; w0 += kThreads) {
+    const int w = w0 + threadIdx.x;
+    const bool on = w < n_items;
+    int I = 0, J = 0, i0 = 0, j0 = 0;
+    float t1[2][4], t2[4][2];
+    if (on) {
+      int p = w >> 1;
+      while (p >= G - I) p -= G - I++;
+      J = I + p, i0 = 4 * I + 2 * (w & 1), j0 = 4 * J;
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          t1[a][b] = t0(s, d, i0 + a, j0 + b);
+          t2[b][a] = t0(s, d, j0 + b, i0 + a);
+        }
+    }
+    __syncthreads();
+    if (!on) continue;
+#pragma unroll 4
+    for (int r = 0; r < d.nu; ++r) {
+      const float* Xr = s.X + r * SA;
+      const float* Pr = s.P + r * SA;
+      const float* Rr = s.R + r * SA;
+      const float2 xi2 = ld2(Xr + i0), pi2 = ld2(Pr + i0), ri2 = ld2(Rr + i0);
+      const float4 xj4 = ld4(Xr + j0), pj4 = ld4(Pr + j0), rj4 = ld4(Rr + j0);
+      const float xi[2] = {xi2.x, xi2.y}, pi[2] = {pi2.x, pi2.y}, ri[2] = {ri2.x, ri2.y};
+      const float xj[4] = {xj4.x, xj4.y, xj4.z, xj4.w}, pj[4] = {pj4.x, pj4.y, pj4.z, pj4.w},
+                  rj[4] = {rj4.x, rj4.y, rj4.z, rj4.w};
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          t1[a][b] += xi[a] * pj[b] + ri[a] * xj[b];
+          t2[b][a] += xj[b] * pi[a] + rj[b] * xi[a];
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int i = i0 + a, j = j0 + b;
+        if (i < d.nx && j < d.nx) {
+          const float v = 0.5f * (t1[a][b] + t2[b][a]);
+          s.VV[i * SA + j] = v;
+          if (I != J) s.VV[j * SA + i] = v;
+        } else if (i < d.nx && j == d.nx) {
+          s.VV[i * SA + j] = t1[a][b];
+        }
+      }
+  }
+}
+
 template <int kNu, bool kFixed>
 __global__ void __launch_bounds__(kThreads, 1)
 riccati_backward(const float* __restrict__ A, const float* __restrict__ B,
@@ -510,15 +659,17 @@ riccati_backward(const float* __restrict__ A, const float* __restrict__ B,
   const int n_vv = vv_tiles(d), n_q = q_tiles(d);
   const int w_stage = (nx + 32) / 32;  // the first warp with no column to solve
   const int n_stage = kThreads / 32 - w_stage;
-  const float reg = *reg_ptr;
+  const size_t bN = (size_t)blockIdx.x * N, bN1 = bN + blockIdx.x;  // this instance's knots
+  const float reg = reg_ptr[blockIdx.x];
 
   float4* z = reinterpret_cast<float4*>(smem);
   for (size_t e = tid; e < smem_floats(d) / 4; e += kThreads) z[e] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
-  stage_knot(s, d, N - 1, warp, kThreads / 32, A, B, lx, lu, lxx, luu);
+  stage_knot(s, d, (N - 1) & 1, bN + N - 1, bN1 + N - 1, warp, kThreads / 32, A, B, lx, lu,
+             lxx, luu);
   for (int e = tid; e < nx * nx; e += kThreads)
-    s.VV[(e / nx) * d.SA + e % nx] = lxx[(size_t)N * nx * nx + e];
-  for (int e = tid; e < nx; e += kThreads) s.VV[e * d.SA + nx] = lx[(size_t)N * nx + e];
+    s.VV[(e / nx) * d.SA + e % nx] = lxx[(bN1 + N) * nx * nx + e];
+  for (int e = tid; e < nx; e += kThreads) s.VV[e * d.SA + nx] = lx[(bN1 + N) * nx + e];
   __syncthreads();
 
   for (int t = N - 1; t >= 0; --t) {
@@ -557,51 +708,194 @@ riccati_backward(const float* __restrict__ A, const float* __restrict__ B,
     } else if (warp >= w_stage) {
       for (int w = kQTiles + tid - 32 * w_stage; w < n_q; w += 32 * n_stage)
         q_tile(s, d, w, Ab, Bb, lxxb);
-      if (t > 0) stage_knot(s, d, t - 1, warp - w_stage, n_stage, A, B, lx, lu, lxx, luu);
+      if (t > 0)
+        stage_knot(s, d, (t - 1) & 1, bN + t - 1, bN1 + t - 1, warp - w_stage, n_stage, A, B,
+                   lx, lu, lxx, luu);
     }
     __syncthreads();
 
-    write_gains(s, d, t, K, kff);
+    write_gains(s, d, bN + t, K, kff);
     phase_update(s, d);
     __syncthreads();
   }
 }
 
+// The wide design (see the header): Smem's knot buffers (A, lxx, B, luu, lx,
+// lu) point into the block's scratch in global memory; QQ is VV, X and P
+// share AtVT's place, L BtVT's.
+__host__ __device__ inline size_t smem_floats_wide(const Dims& d) {
+  const size_t xa = (size_t)d.NXp * d.SA, ua = (size_t)d.NUp * d.SA;
+  const size_t xu = (size_t)d.NXp * d.SU, uu = (size_t)d.NUp * d.SU;
+  return 2 * xa + (2 * ua > xa ? 2 * ua - xa : 0) + ua + (xu > d.NUp * kLsW ? xu : d.NUp * kLsW) +
+         uu + d.NXp;
+}
+
+__host__ __device__ inline size_t scratch_floats_wide(const Dims& d) {
+  return 2 * ((size_t)2 * d.NXp * d.SA + (size_t)d.NXp * d.SU + (size_t)d.NUp * d.SU + d.NXp +
+              d.NUp);
+}
+
+__device__ inline Smem carve_wide(float* s, float* g, const Dims& d) {
+  Smem m;
+  const int xa = d.NXp * d.SA, ua = d.NUp * d.SA, xu = d.NXp * d.SU, uu = d.NUp * d.SU;
+  m.VV = m.QQ = s; s += xa;
+  m.AtVT = m.X = s;
+  m.P = s + ua; s += max(xa, 2 * ua);
+  m.R = s; s += ua;
+  m.BtVT = m.L = s; s += max(xu, d.NUp * kLsW);
+  m.Quu = s; s += uu;
+  m.Qx = s;
+  m.A = g; g += 2 * xa;
+  m.lxx = g; g += 2 * xa;
+  m.B = g; g += 2 * xu;
+  m.luu = g; g += 2 * uu;
+  m.lx = g; g += 2 * d.NXp;
+  m.lu = g;
+  return m;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+riccati_backward_wide(const float* __restrict__ A, const float* __restrict__ B,
+                      const float* __restrict__ lx, const float* __restrict__ lu,
+                      const float* __restrict__ lxx, const float* __restrict__ luu,
+                      const float* __restrict__ reg_ptr, float pd_bump, float* __restrict__ K,
+                      float* __restrict__ kff, float* scratch, int N, int nx, int nu) {
+  extern __shared__ __align__(16) float smem[];
+  const Dims d = dims(nx, nu);
+  float* g = scratch + blockIdx.x * scratch_floats_wide(d);
+  const Smem s = carve_wide(smem, g, d);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int xa = d.NXp * d.SA, xu = d.NXp * d.SU, uu = d.NUp * d.SU;
+  const int n_vv = vv_tiles(d), n_q = q_tiles(d);
+  const int w_stage = (nx + 32) / 32;  // the first warp with no column to solve
+  const int n_stage = kThreads / 32 - w_stage;
+  const size_t bN = (size_t)blockIdx.x * N, bN1 = bN + blockIdx.x;
+  const float reg = reg_ptr[blockIdx.x];
+
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (size_t e = tid; e < smem_floats_wide(d) / 4; e += kThreads)
+    reinterpret_cast<float4*>(smem)[e] = zero;
+  for (size_t e = tid; e < scratch_floats_wide(d) / 4; e += kThreads)
+    reinterpret_cast<float4*>(g)[e] = zero;
+  __syncthreads();
+  stage_knot<8, 4>(s, d, (N - 1) & 1, bN + N - 1, bN1 + N - 1, warp, kThreads / 32, A, B, lx,
+                   lu, lxx, luu);
+  for (int e = tid; e < nx * nx; e += kThreads)
+    s.VV[(e / nx) * d.SA + e % nx] = lxx[(bN1 + N) * nx * nx + e];
+  for (int e = tid; e < nx; e += kThreads) s.VV[e * d.SA + nx] = lx[(bN1 + N) * nx + e];
+  __syncthreads();
+
+  for (int t = N - 1; t >= 0; --t) {
+    const int b = t & 1;
+    const float *Ab = s.A + b * xa, *Bb = s.B + b * xu, *lxxb = s.lxx + b * xa;
+
+    for (int w = tid; w < n_vv; w += kThreads)
+      vv_tile(s, d, w, Ab, Bb, s.lx + b * d.NXp, s.lu + b * d.NUp);
+    __syncthreads();
+
+    // Quu on warps 0-3, then its factor on warp 0; every Qxu/Qxx tile on
+    // warps 4-7 and, once Quu is done, warps 1-3.
+    if (tid < kQuuThreads) {
+      phase_quu(s, d, Bb, s.luu + b * uu, reg);
+      quu_sync();
+    }
+    if (tid < 32) {
+      if (factor_wide(s.Quu, s.L, nu, d.SU)) {  // warp-uniform
+        for (int r = tid; r < nu; r += 32) s.Quu[r * d.SU + r] += pd_bump;
+        __syncwarp();
+        factor_wide(s.Quu, s.L, nu, d.SU);
+      }
+    } else {
+      for (int w = tid - 32; w < n_q; w += kThreads - 32) q_tile(s, d, w, Ab, Bb, lxxb);
+    }
+    __syncthreads();
+
+    // The solve on the first warps; beside it the others stage knot t - 1.
+    if (tid <= nx) {
+      phase_solve<kMaxNuW, false, kLsW>(s, d);
+    } else if (warp >= w_stage && t > 0) {
+      stage_knot<8, 4>(s, d, (t - 1) & 1, bN + t - 1, bN1 + t - 1, warp - w_stage, n_stage, A,
+                       B, lx, lu, lxx, luu);
+    }
+    __syncthreads();
+
+    write_gains(s, d, bN + t, K, kff);
+    phase_update_inplace(s, d);
+    __syncthreads();
+  }
+}
+
+// Above 48 KB a block's shared memory must be opted into (227 KB max).
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 template <int kNu, bool kFixed>
 int launch(const float* A, const float* B, const float* lx, const float* lu, const float* lxx,
-           const float* luu, const float* reg, float pd_bump, float* K, float* kff, int N,
-           int nx, int nu, cudaStream_t stream) {
+           const float* luu, const float* reg, float pd_bump, float* K, float* kff, int batch,
+           int N, int nx, int nu, cudaStream_t stream) {
   const size_t bytes = sizeof(float) * smem_floats(dims(nx, nu));
-  // Above 48 KB a block's shared memory must be opted into (227 KB max).
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(riccati_backward<kNu, kFixed>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  riccati_backward<kNu, kFixed><<<1, kThreads, bytes, stream>>>(A, B, lx, lu, lxx, luu, reg,
-                                                                pd_bump, K, kff, N, nx, nu);
+  cudaError_t e = opt_in(riccati_backward<kNu, kFixed>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  riccati_backward<kNu, kFixed><<<batch, kThreads, bytes, stream>>>(A, B, lx, lu, lxx, luu, reg,
+                                                                    pd_bump, K, kff, N, nx, nu);
   return (int)cudaGetLastError();
 }
+
+bool narrow(int nx, int nu) { return nx <= kMaxNx && nu <= kMaxNu; }
 
 }  // namespace
 
 extern "C" {
 
+// Shared memory per block, and global scratch per instance (floats), of the
+// design that takes (nx, nu).
 long long mpc_riccati_smem_bytes(int nx, int nu) {
-  return (long long)(sizeof(float) * smem_floats(dims(nx, nu)));
+  const Dims d = dims(nx, nu);
+  return (long long)(sizeof(float) * (narrow(nx, nu) ? smem_floats(d) : smem_floats_wide(d)));
 }
 
-// K (N, nu, nx), kff (N, nu) from A (N, nx, nx), B (N, nx, nu), lx (N+1, nx),
-// lu (N, nu), lxx (N+1, nx, nx), luu (N, nu, nu), all row-major float32 on
-// the device, and λ as one float on the device (no host read of it).
+long long mpc_riccati_scratch_floats(int nx, int nu) {
+  return narrow(nx, nu) ? 0 : (long long)scratch_floats_wide(dims(nx, nu));
+}
+
+// K (batch, N, nu, nx), kff (batch, N, nu) from A (batch, N, nx, nx),
+// B (batch, N, nx, nu), lx (batch, N+1, nx), lu (batch, N, nu),
+// lxx (batch, N+1, nx, nx), luu (batch, N, nu, nu) and λ (batch,), all
+// row-major float32 on the device (no host read of λ); one block per
+// instance. `scratch` holds batch · mpc_riccati_scratch_floats(nx, nu)
+// floats on the device (unused, and may be null, for the narrow design).
+int mpc_riccati_backward_batched(const float* A, const float* B, const float* lx,
+                                 const float* lu, const float* lxx, const float* luu,
+                                 const float* reg, float pd_bump, float* K, float* kff,
+                                 float* scratch, int batch, int N, int nx, int nu, void* stream) {
+  if (batch < 1 || N < 1 || nx < 1 || nu < 1 || nx > kMaxNxW || nu > kMaxNuW)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (nu == 19 && nx <= kMaxNx)  // H1
+    return launch<19, true>(A, B, lx, lu, lxx, luu, reg, pd_bump, K, kff, batch, N, nx, nu, st);
+  if (narrow(nx, nu))
+    return launch<kMaxNu, false>(A, B, lx, lu, lxx, luu, reg, pd_bump, K, kff, batch, N, nx, nu,
+                                 st);
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t bytes = sizeof(float) * smem_floats_wide(dims(nx, nu));
+  cudaError_t e = opt_in(riccati_backward_wide, bytes);
+  if (e != cudaSuccess) return (int)e;
+  riccati_backward_wide<<<batch, kThreads, bytes, st>>>(A, B, lx, lu, lxx, luu, reg, pd_bump, K,
+                                                         kff, scratch, N, nx, nu);
+  return (int)cudaGetLastError();
+}
+
+// One instance (the batched launch with batch = 1), for the sizes every
+// design of this kernel takes (nx <= 64, nu <= 32; tools/port_riccati_designs.py).
 int mpc_riccati_backward(const float* A, const float* B, const float* lx, const float* lu,
                          const float* lxx, const float* luu, const float* reg, float pd_bump,
                          float* K, float* kff, int N, int nx, int nu, void* stream) {
-  if (N < 1 || nx < 1 || nu < 1 || nx > kMaxNx || nu > kMaxNu) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (nu == 19)  // H1
-    return launch<19, true>(A, B, lx, lu, lxx, luu, reg, pd_bump, K, kff, N, nx, nu, st);
-  return launch<kMaxNu, false>(A, B, lx, lu, lxx, luu, reg, pd_bump, K, kff, N, nx, nu, st);
+  if (!narrow(nx, nu)) return (int)cudaErrorInvalidValue;
+  return mpc_riccati_backward_batched(A, B, lx, lu, lxx, luu, reg, pd_bump, K, kff, nullptr, 1, N,
+                                      nx, nu, stream);
 }
 
 }  // extern "C"

@@ -147,11 +147,8 @@ def vmap_safe(cfg: ILQRConfig) -> ILQRConfig:
 def batched_config(cfg: ILQRConfig) -> ILQRConfig:
     """vmap_safe(cfg) on the plain chains: rollout_backend and ls_backend
     "xla". The batched path takes no StepPlan, as the reference's reaches
-    its plain chains through plan=None; the CUDA kernels take one instance.
-    backward="pallas" (K4) raises for the same reason."""
-    if cfg.backward == "pallas":
-        raise NotImplementedError("backward='pallas' (K4) solves one instance; K1-K4 over a "
-                                  "batch grid is a later option (ROADMAP.md Queue 2)")
+    its plain chains through plan=None. backward="pallas" stays: K4 runs a
+    batch in one launch, one block per instance."""
     return dataclasses.replace(vmap_safe(cfg), rollout_backend="xla", ls_backend="xla")
 
 
@@ -246,6 +243,12 @@ def backward_pass(A, B, quad: CostQuadratics, reg, pd_bump: float):
         Vxx = 0.5 * (Vxx + Vxx.T)
         K_out[t], k_out[t] = K_t, k_t
     return torch.stack(K_out), torch.stack(k_out)
+
+
+def backward_pass_k4(A, B, quad: CostQuadratics, reg, pd_bump: float):
+    """`backward_pass` by K4 (ops/riccati.py): one launch on the card, a
+    batch of instances in one launch under vmap."""
+    return riccati.backward_pass_kernel(*(t.contiguous() for t in (A, B, *quad)), reg, pd_bump)
 
 
 def rollout_alphas(model: RobotModel, cp: CostParams, cfg: ILQRConfig, win: ReferenceWindow,
@@ -364,8 +367,7 @@ def solve(model: RobotModel, cp: CostParams, cfg: ILQRConfig, x0, win: Reference
         reg_a, ok, best = reg, False, None
         for _ in range(1 if cfg.inner_attempts == 1 else 2):  # the reference retries once
             if cfg.backward == "pallas":
-                K, kff = riccati.backward_pass_kernel(
-                    *(t.contiguous() for t in (A, B, *quad)), reg_a, cfg.pd_bump)
+                K, kff = backward_pass_k4(A, B, quad, reg_a, cfg.pd_bump)
             elif cfg.backward == "assoc":
                 K, kff = backward_pass_assoc(A, B, quad, reg_a, cfg.pd_bump)
             else:
@@ -419,14 +421,16 @@ def device_solve(model: RobotModel, cp: CostParams, cfg: ILQRConfig, x0, win: Re
     alpha by tensor index; iterations and success are 0-dim tensors. No
     `bool()`, `int()` or `.item()`: it runs under `torch.func.vmap` and
     waits for the device nowhere. Takes no StepPlan: the plain chains only
-    (rollout_backend and ls_backend "xla", backward "scan" or "assoc")."""
+    (rollout_backend and ls_backend "xla"); any backward, K4 ("pallas")
+    with the attempt's λ, per instance under vmap."""
     cfg = vmap_safe(cfg)
     check_config(cfg)
-    if (cfg.rollout_backend, cfg.ls_backend) != ("xla", "xla") or cfg.backward == "pallas":
+    if (cfg.rollout_backend, cfg.ls_backend) != ("xla", "xla"):
         raise NotImplementedError(
-            "device_solve runs the plain chains only (rollout_backend='xla', ls_backend='xla', "
-            "backward 'scan' or 'assoc'); see batched_config and ROADMAP.md Queue 1 item 2")
-    backward = backward_pass_assoc if cfg.backward == "assoc" else backward_pass
+            "device_solve runs the plain chains only (rollout_backend='xla', ls_backend='xla'); "
+            "see batched_config and ROADMAP.md Queue 1 item 2")
+    backward = {"assoc": backward_pass_assoc, "pallas": backward_pass_k4}.get(cfg.backward,
+                                                                             backward_pass)
     N, nu, nx = cfg.N, model.nu, model.nx
     dt, dev = x0.dtype, x0.device
     if xbar_init is None:

@@ -128,6 +128,12 @@ def bind(lib_path: str) -> ctypes.CDLL:
     lib.mpc_riccati_backward.restype = I
     lib.mpc_riccati_smem_bytes.argtypes = [I, I]
     lib.mpc_riccati_smem_bytes.restype = LL
+    if hasattr(lib, "mpc_riccati_backward_batched"):  # an earlier design's library lacks it
+        # A, B, lx, lu, lxx, luu, reg, pd_bump, K, kff, scratch, batch, N, nx, nu, stream
+        lib.mpc_riccati_backward_batched.argtypes = [P] * 7 + [F, P, P, P, I, I, I, I, P]
+        lib.mpc_riccati_backward_batched.restype = I
+        lib.mpc_riccati_scratch_floats.argtypes = [I, I]
+        lib.mpc_riccati_scratch_floats.restype = LL
     return lib
 
 

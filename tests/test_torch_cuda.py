@@ -274,16 +274,24 @@ def _riccati_inputs(N, nx, nu, case="plain"):
                                                (3, 33, 7, 1e-6, "plain"),
                                                (1, 51, 19, 1e-6, "plain"),
                                                (10, 33, 7, RICCATI_REG, "rescued"),
-                                               (10, 64, 32, RICCATI_REG, "indefinite")])
+                                               (10, 64, 32, RICCATI_REG, "indefinite"),
+                                               (3, 103, 45, 1e-6, "plain"),
+                                               (8, 103, 45, RICCATI_REG, "rescued"),
+                                               (8, 103, 45, RICCATI_REG, "indefinite"),
+                                               (3, 128, 64, 1e-6, "plain"),
+                                               (10, 8, 64, RICCATI_REG, "rescued"),
+                                               (3, 65, 3, 1e-6, "plain")])
 def test_riccati_kernel_matches_plain_and_counts_its_launch(card, N, nx, nu, reg, case):
     """K4 against its plain version at the JAX package's Riccati bar
     (rtol 2e-3, atol 2e-4, tests/test_ops.py:36-37), non-finite exactly where
     the plain version is; "rescued" puts an exact zero pivot at one step,
     where the PD bump must fire in the kernel too; "indefinite" a Quu the bump
     cannot cure, so every step from there down is NaN. (3, 64, 32) is the
-    kernel's largest size, (3, 33, 7) a ragged one and N=1 the shortest
-    pass; the last two take the bump and its NaNs through the instantiation
-    for every nu but H1's."""
+    first design's largest size, (3, 33, 7) a ragged one and N=1 the
+    shortest pass; the next two take the bump and its NaNs through the
+    instantiation for every nu but H1's. The rest go through the wide
+    design: H1 with hands (103, 45) and its bump cases, its largest size
+    (128, 64), and sizes past the first design's in one dimension only."""
     from mpc_ilqr_tpu_torch.ops import riccati
 
     args = _riccati_inputs(N, nx, nu, case)
@@ -304,6 +312,35 @@ def test_riccati_kernel_matches_plain_and_counts_its_launch(card, N, nx, nu, reg
     if case == "indefinite":  # the steps from the indefinite one down, and only they
         bad = (~torch.isfinite(k)).any(1).cpu()
         assert bad.tolist() == [t <= RICCATI_T_BAD for t in range(N)]
+
+
+@pytest.mark.parametrize("nx,nu", [(51, 19), (33, 7), (103, 45)])
+def test_riccati_batch_is_one_launch_equal_to_single_launches(card, nx, nu):
+    """torch.func.vmap of K4 over 3 instances with their own λ (one of them
+    with the PD bump): one launch, no host sync, each instance's gains bit
+    for bit those of its own single launch (a block computes its instance as
+    the single launch does), through each design and instantiation."""
+    from mpc_ilqr_tpu_torch.ops import riccati
+
+    probs = [_riccati_inputs(10, nx, nu, c) for c in ("plain", "rescued", "plain")]
+    arrs = [torch.stack([p[j] * (1.0 + 0.05 * i) if j < 2 else p[j] for i, p in enumerate(probs)])
+            for j in range(6)]
+    regs = torch.tensor([1e-6, RICCATI_REG, 1e-2], device="cuda")
+    singles = [riccati.backward_pass_kernel(*(a[i] for a in arrs), regs[i], 1e-4)
+               for i in range(3)]
+    torch.cuda.synchronize()
+    riccati.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        K, k = torch.func.vmap(lambda *a: riccati.backward_pass_kernel(*a[:6], a[6], 1e-4))(
+            *arrs, regs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert riccati.LAUNCHES["riccati"] == 1 and K.shape == (3, 10, nu, nx)
+    for i, (Ks, ks) in enumerate(singles):
+        assert torch.equal(K[i], Ks) and torch.equal(k[i], ks), i
+    assert bool(torch.isfinite(k[1]).all())  # the bump rescued the zero pivot
 
 
 def test_riccati_kernel_matches_float64_on_the_long_horizon_inputs(card):
@@ -460,6 +497,38 @@ def test_fleet_of_8_steps_on_the_card_without_a_host_sync(card):
     assert bool(torch.isfinite(u).all()) and bool(torch.isfinite(diag.cost).all())
     assert bool(states.has_prev.all())
     assert not any(rk.LAUNCHES.values()) and not any(riccati.LAUNCHES.values())
+
+
+def test_fleet_of_8_with_k4_launches_once_per_attempt_without_a_host_sync(card):
+    """scenarios.fleet at 8 instances with backward "pallas": the warm step
+    under sync-debug "error", K4 launched once per attempt of every trip
+    (one launch for the 8 instances), finite controls, and the same
+    solve_ok count as backward "scan" with controls within chip_smoke's
+    batched bar."""
+    import dataclasses
+
+    from mpc_ilqr_tpu_torch import scenarios
+    from mpc_ilqr_tpu_torch.ops import riccati
+    from mpc_ilqr_tpu_torch.parallel import fleet
+
+    fl = scenarios.fleet(n=8)
+    cfg = dataclasses.replace(fl.prob.cfg, backward="pallas")
+    step = lambda c, s: fleet.fleet_step_chunked(fl.models, fl.prob.cp, c, fl.prob.refs, s, fl.xs,
+                                                 fl.chunk)
+    states, _, _ = step(cfg, fl.states)
+    torch.cuda.synchronize()
+    riccati.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, u, diag = step(cfg, states)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert riccati.LAUNCHES["riccati"] == cfg.max_iterations * cfg.inner_attempts
+    _, u_s, diag_s = step(fl.prob.cfg, states)
+    assert bool(torch.isfinite(u).all())
+    assert int(diag.solve_ok.sum()) == int(diag_s.solve_ok.sum())
+    assert float((u - u_s).abs().max()) <= SEED_UBAR_ATOL
 
 
 def test_batched_seed_solve_equals_one_seed_at_a_time(card):

@@ -25,8 +25,9 @@ FIXTURES = sorted(glob.glob(os.path.join(ROOT, "tests", "torch_fixtures", "*.npz
 
 def test_every_fixture_is_checked():
     names = {os.path.basename(p) for p in FIXTURES}
-    assert {"exact_h1.npz", "fd32_h1.npz", "fleet_h1.npz", "long_horizon_h1.npz",
-            "mujoco_h1.npz", "nominal_h1.npz", "slice_h1.npz", "walking_h1.npz"} <= names
+    assert {"exact_h1.npz", "fd32_h1.npz", "fleet_h1.npz", "hands_h1.npz",
+            "long_horizon_h1.npz", "mujoco_h1.npz", "nominal_h1.npz", "slice_h1.npz",
+            "walking_h1.npz"} <= names
 
 
 @pytest.mark.parametrize("path", FIXTURES, ids=os.path.basename)

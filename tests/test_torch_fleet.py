@@ -136,15 +136,18 @@ def test_vmap_safe_matches_reference(line_search, outer_loop):
 
 def test_unported_chunking_and_kernel_backends_raise(h1):
     """lin_chunk / hess_chunk take any size >= 0 and raise on a negative
-    one; the batched path refuses K4 and device_solve any kernel backend
-    (it takes no StepPlan)."""
+    one; the batched path keeps K4 (one launch over the batch) on the plain
+    rollout chains, and device_solve refuses the rollout kernels (it takes
+    no StepPlan)."""
     ok = tsol.ILQRConfig(**SHIPPED)
     for field in ("lin_chunk", "hess_chunk"):
         tsol.check_config(dataclasses.replace(ok, **{field: 8}))
         with pytest.raises(ValueError, match=f"ILQRConfig.{field} must be >= 0"):
             tsol.check_config(dataclasses.replace(ok, **{field: -1}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsol.batched_config(dataclasses.replace(ok, backward="pallas"))
+    k4 = tsol.batched_config(dataclasses.replace(ok, backward="pallas", rollout_backend="pallas",
+                                                 line_search="cascade"))
+    assert (k4.backward, k4.rollout_backend, k4.ls_backend, k4.line_search, k4.outer_loop) == (
+        "pallas", "xla", "xla", "first_accept", "scan")
     cfg = tsol.batched_config(dataclasses.replace(ok, rollout_backend="pallas",
                                                   ls_backend="pallas_batched"))
     assert (cfg.rollout_backend, cfg.ls_backend) == ("xla", "xla")
@@ -187,6 +190,30 @@ def test_device_solve_equals_solve_of_vmap_safe(h1, case):
     for f in ("xbar", "ubar", "K", "kff", "cost", "reg"):
         np.testing.assert_allclose(getattr(got, f).numpy(), getattr(want, f).numpy(), rtol=0,
                                    atol=1e-12, err_msg=f)
+
+
+@pytest.mark.parametrize("case", ["first_accept", "nothing_accepted"])
+def test_device_solve_with_k4_equals_solve_of_vmap_safe(h1, case):
+    """backward "pallas" (K4; its plain version on the CPU) through the
+    device-side solve and the host-side solve of vmap_safe(cfg), each
+    attempt with its own λ (nothing_accepted raises it ×10 twice): the bars
+    of test_device_solve_equals_solve_of_vmap_safe, float64."""
+    jm, _, _, tm, tcp, trefs = h1
+    cfg = tsol.ILQRConfig(N=2, tolerance=1e-3, alphas=(1.0, 0.5, 0.1, 0.02), backward="pallas",
+                          **SHIPPED, **SOLVE_CASES[case])
+    x0 = standing_state(tm)
+    rng = np.random.default_rng(7)
+    u0 = engine.gravity_comp(tm, x0)[None] + T64(0.5 * rng.normal(size=(cfg.N, tm.nu)))
+    win = extract_window(trefs, 0, cfg.N)
+    want = tsol.solve(tm, tcp, tsol.vmap_safe(cfg), x0, win, u0)
+    got = tsol.device_solve(tm, tcp, cfg, x0, win, u0)
+    assert int(got.iterations) == want.iterations and bool(got.success) == want.success
+    assert int(got.attempts) == want.attempts
+    for f in ("xbar", "ubar", "K", "kff", "cost", "reg"):
+        np.testing.assert_allclose(getattr(got, f).numpy(), getattr(want, f).numpy(), rtol=0,
+                                   atol=1e-12, err_msg=f)
+    scan = tsol.device_solve(tm, tcp, dataclasses.replace(cfg, backward="scan"), x0, win, u0)
+    np.testing.assert_allclose(got.ubar.numpy(), scan.ubar.numpy(), rtol=0, atol=1e-8)
 
 
 def test_extract_window_takes_tensor_t0():
@@ -306,6 +333,44 @@ def test_fleet_step_once_matches_reference_on_the_arm(arm):
         assert bool(got[2].solve_ok.all())
         jstates = want[0]
     assert bool(got[0].has_prev.all()) and got[0].t_idx.tolist() == [2] * n
+
+
+# The reference's K4 rounds its inputs to float32 and its gains back
+# (mpc_ilqr_tpu/ops/riccati.py:156-186) whatever dtype the solve runs in;
+# the port's plain version on the CPU keeps float64. Both fleets run in
+# float64 and part by the float32 rounding of K and kff carried through the
+# line search.
+K4_FLEET_ATOL = 1e-5
+
+
+def test_fleet_step_once_with_k4_matches_reference_on_the_arm(arm):
+    """test_fleet_step_once_matches_reference_on_the_arm with backward
+    "pallas": the port's K4 under vmap (one call over the 4 instances, each
+    with its own λ) against the reference's Pallas kernel under jax.vmap in
+    interpret mode (as its solve picks on the CPU), the cold and the warm
+    step, float64, at K4_FLEET_ATOL; and against the port's own fleet with
+    backward "scan", at the same bar."""
+    jm, cp, refs, tm, tcp, trefs = arm
+    n = 4
+    jmodels, models, xs = _arm_fleet(arm, n)
+    kw = dict(N=4, max_iterations=2, backward="pallas", **SHIPPED)
+    jcfg, cfg = jsol.ILQRConfig(**kw), tsol.ILQRConfig(**kw)
+    jstep = jax.jit(lambda m, s, x: jfleet.fleet_step_once(m, cp, jcfg, refs, s, x))
+    jstates = jfleet.fleet_init(jmodels, jcfg, n)
+    states = fleet.fleet_init(models, cfg, n)
+    for k in range(2):
+        if k:
+            states = interop.mpc_state_from_numpy(
+                {f: np.asarray(getattr(jstates, f)) for f in STATE_FIELDS}, device="cpu",
+                dtype=torch.float64)
+        want = jstep(jmodels, jstates, jnp.asarray(xs))
+        got = fleet.fleet_step_once(models, tcp, cfg, trefs, states, T64(xs))
+        _check_step(got, want, K4_FLEET_ATOL)
+        assert bool(got[2].solve_ok.all())
+        scan = fleet.fleet_step_once(models, tcp, dataclasses.replace(cfg, backward="scan"), trefs,
+                                     states, T64(xs))
+        _check_step(got, tuple(scan), K4_FLEET_ATOL)
+        jstates = want[0]
 
 
 def test_fleet_step_chunked_equals_fleet_step_once(arm):

@@ -3,6 +3,9 @@ the wrapper runs on CPU tensors) against the JAX package's Pallas kernel in
 interpret mode, float32, at that kernel's own bar (tests/test_ops.py:36-37,
 rtol 2e-3 / atol 2e-4), with and without the PD bump; against the port's
 `solver.backward_pass` in float64; and the wrapper's checks."""
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +18,8 @@ from mpc_ilqr_tpu.ops.riccati import backward_pass_pallas
 from mpc_ilqr_tpu_torch.costs.quadratics import CostQuadratics as TQuad
 from mpc_ilqr_tpu_torch.ilqr import solver as tsol
 from mpc_ilqr_tpu_torch.ops import riccati
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def random_problem(N, nx, nu, case="plain"):
@@ -34,9 +39,13 @@ def _assert_same(got, want, rtol, atol):
 @pytest.mark.parametrize("N,nx,nu,case", [
     (10, 51, 19, "plain"), (4, 13, 5, "plain"),  # test_ops.py:28-49's two shapes
     (10, 51, 19, "rescued"), (10, 51, 19, "indefinite"),
-    (3, 64, 32, "plain"), (3, 33, 7, "plain"), (1, 51, 19, "plain"),  # the CUDA kernel's
+    (3, 64, 32, "plain"), (3, 33, 7, "plain"), (1, 51, 19, "plain"),  # the first CUDA design's
     (10, 33, 7, "rescued"), (10, 64, 32, "indefinite"),  # largest size, a ragged one, N=1,
-])                                                       # and the bump at sizes other than H1's
+    # and the bump at sizes other than H1's; H1 with hands (the wide design), its bump cases
+    # (N=8: one step past the bad one), and the wide design's largest size
+    (3, 103, 45, "plain"), (8, 103, 45, "rescued"), (8, 103, 45, "indefinite"),
+    (3, 128, 64, "plain"),
+])
 def test_plain_matches_the_pallas_kernel(N, nx, nu, case):
     arrs = random_problem(N, nx, nu, case)
     K_j, k_j = backward_pass_pallas(*map(jnp.asarray, arrs), jnp.float32(REG), 1e-4,
@@ -70,9 +79,8 @@ def test_plain_reports_the_steps_where_the_bump_fires(case, want):
     """The steps chip_smoke counts a second factor at for K4's bound: none,
     the zero-pivot step, or that step and every NaN step before it."""
     arrs = [torch.tensor(a) for a in riccati_problem(10, 13, 5, case)]
-    bumps = []
-    riccati.backward_pass_plain(*arrs, REG, 1e-4, bumps=bumps)
-    assert bumps == want
+    bumped = riccati.backward_pass_plain(*arrs, REG, 1e-4, with_bumps=True)[2]
+    assert bumped.shape == (10,) and [t for t in range(9, -1, -1) if bumped[t]] == want
 
 
 def test_solver_bump_stays_in_float64():
@@ -99,6 +107,13 @@ def test_cpu_wrapper_runs_the_plain_version_uncounted():
 
 
 def test_wrapper_raises_on_what_it_does_not_take():
+    """The wrapper's checks, and its stated limit: the wide design's
+    (csrc/riccati.cu kMaxNxW, kMaxNuW), at least H1 with hands and
+    nx=128, nu=64 (test_torch_cuda.py holds the card to it)."""
+    src = open(os.path.join(ROOT, "mpc_ilqr_tpu_torch", "csrc", "riccati.cu")).read()
+    limit = tuple(int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                  for k in ("kMaxNxW", "kMaxNuW"))
+    assert (riccati.MAX_NX, riccati.MAX_NU) == limit and limit >= (128, 64)
     arrs = [torch.tensor(a) for a in random_problem(4, 13, 5)]
     with pytest.raises(ValueError):  # a device that is neither CPU nor CUDA
         riccati.backward_pass_kernel(*(a.to("meta") for a in arrs), REG, 1e-4)

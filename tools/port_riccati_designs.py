@@ -7,7 +7,8 @@ against an earlier design of it, on one GPU.
 
 The earlier design is the csrc/ of that copy of the package. The inputs are
 made once and saved: chip_smoke.py's long-horizon inputs (N=100, and their
-last 25 knots for N=25) and its phase-5 reference cases (riccati_problem).
+last 25 knots for N=25) and its reference cases at nx <= 64, nu <= 32
+(riccati_problem; the sizes every design has taken).
 The two designs then run in turns (old, new, new, old, each its own
 process; tools/design_turns.py) through the same C interface. Prints each
 design's shared memory for H1, each turn's ms per launch (CUDA events over
@@ -37,7 +38,8 @@ def _cases():
     cases = {f"long horizon N={n}": ([a[100 - n:] for a in lh], float(z["reg"]), True)
              for n in (100, 25)}
     for N, nx, nu, case, reg in cs.RICCATI_CASES:
-        cases[f"({N}, {nx}, {nu}) {case}"] = (cs.riccati_problem(N, nx, nu, case), reg, False)
+        if nx <= 64 and nu <= 32:  # the sizes every design takes
+            cases[f"({N}, {nx}, {nu}) {case}"] = (cs.riccati_problem(N, nx, nu, case), reg, False)
     return cases, float(z["pd"])
 
 
