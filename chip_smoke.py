@@ -102,8 +102,11 @@ Phases, each printing its wall seconds:
               then the group is destroyed
  11. k4 at every input  (a) K4 against its plain version on the random
               cases past the narrow design's sizes (RICCATI_CASES: H1 with
-              hands (103, 45) plain and both bump cases, and (128, 64)), at
-              the JAX bar; (b) on the hands problem's own inputs
+              hands (103, 45) plain and both bump cases, (128, 64), and the
+              wide design's limit (160, 80) with both bump cases), at the JAX
+              bar, after each wide size's cluster, shared memory per CTA,
+              scratch (none) and resident clusters are printed; (b) on the
+              hands problem's own inputs
               (hands_inputs: A, B and the GN quadratics along the cold-start
               rollout) at N=25 and N=100 against float64, no further than
               float32 allows; (c) the hands solve (hands_problem: config.yaml's
@@ -153,12 +156,14 @@ RICCATI_REG = 2.0 ** -20  # ~1e-6, exact in float32 (the bump case needs an exac
 RICCATI_T_BAD = 6  # the step where riccati_problem's bump cases put their pivot
 # K4's reference cases: (N, nx, nu, riccati_problem case, λ). Phase 5 runs those at
 # nx <= 64, nu <= 32 (riccati_backward, the narrow design); phase 11 the others: H1
-# with hands (103, 45), its bump cases (N=8: one step past the bad one) and the
-# largest size.
+# with hands (103, 45), its bump cases (N=8: one step past the bad one), (128, 64) and
+# the wide design's limit (160, 80) with its bump cases.
 RICCATI_CASES = ((10, 51, 19, "plain", 1e-6), (4, 13, 5, "plain", 1e-5),
                  (10, 51, 19, "rescued", RICCATI_REG), (10, 51, 19, "indefinite", RICCATI_REG),
                  (3, 103, 45, "plain", 1e-6), (8, 103, 45, "rescued", RICCATI_REG),
-                 (8, 103, 45, "indefinite", RICCATI_REG), (3, 128, 64, "plain", 1e-6))
+                 (8, 103, 45, "indefinite", RICCATI_REG), (3, 128, 64, "plain", 1e-6),
+                 (3, 160, 80, "plain", 1e-6), (8, 160, 80, "rescued", RICCATI_REG),
+                 (8, 160, 80, "indefinite", RICCATI_REG))
 # H1 with dexterous hands (nq=52, nv=51: nx=103, nu=45), the second model the repo
 # ships; phase 11 solves it with config.yaml's solver (hands_problem).
 HANDS_XML = os.path.join("robots", "h1_description", "mjcf", "h1_with_hand.xml")
@@ -1149,10 +1154,15 @@ def k4_phase(report, smi_line, reset_counts, read_counts, ctx):
 
     k4 = report["riccati"]
     lib = _build.library()
-    for nx_, nu_ in ((103, 45), (riccati.MAX_NX, riccati.MAX_NU)):
-        print(f"K4 at (nx, nu) = ({nx_}, {nu_}): riccati_backward_wide, shared memory per block "
-              f"{lib.mpc_riccati_smem_bytes(nx_, nu_)} bytes, scratch per instance "
-              f"{4 * lib.mpc_riccati_scratch_floats(nx_, nu_)} bytes")
+    for nx_, nu_ in ((103, 45), (128, 64), (riccati.MAX_NX, riccati.MAX_NU)):
+        n_cta = lib.mpc_riccati_cluster(nx_, nu_)
+        resident = lib.mpc_riccati_active_clusters(nx_, nu_)
+        print(f"K4 at (nx, nu) = ({nx_}, {nu_}): riccati_backward_wide, a cluster of {n_cta} "
+              f"CTAs per instance, shared memory per CTA {lib.mpc_riccati_smem_bytes(nx_, nu_)} "
+              f"bytes, global scratch per instance {4 * lib.mpc_riccati_scratch_floats(nx_, nu_)} "
+              f"bytes; {resident} such clusters resident at once")
+        if n_cta < 1 or resident < 1 or lib.mpc_riccati_scratch_floats(nx_, nu_) != 0:
+            fail(f"K4's wide design cannot launch at ({nx_}, {nu_})")
 
     # (a) the random cases at the sizes past the narrow design's
     pd = solver.ILQRConfig().pd_bump
@@ -1380,7 +1390,7 @@ def k4_phase(report, smi_line, reset_counts, read_counts, ctx):
           f"solver.backward_pass {loop_ms:.3f} ms; bound {bound_ms:.6e} ms by {bound_by}: "
           f"{n_bytes} bytes, {flops} flop; PD bumps {int(bumped.sum())})")
     k4.update(takes=f"nx <= {riccati.MAX_NX}, nu <= {riccati.MAX_NU}; a batch of instances in "
-                    f"one launch (one block each)", ms_batch128_n25=ms,
+                    f"one launch (one block or cluster each)", ms_batch128_n25=ms,
               plain_ms_batch128_n25=plain_ms, vmapped_loop_ms_batch128_n25=loop_ms,
               bound_ms_batch128_n25=bound_ms)
 

@@ -1,16 +1,18 @@
 // The Riccati backward pass for Hopper (sm_90a): the whole recursion
-// t = N-1 .. 0 in one launch, one thread block per instance, the value
-// function (Vx, Vxx) in shared memory for the whole pass.
+// t = N-1 .. 0 in one launch, the value function (Vx, Vxx) in shared memory
+// for the whole pass.
 //
 //   riccati_backward       replaces the TPU kernel backward_pass_pallas
 //                          (mpc_ilqr_tpu/ops/riccati.py:143; body
 //                          _riccati_kernel :94, _chol_masked :43,
-//                          _solve_chol :67) for nx <= 64, nu <= 32
+//                          _solve_chol :67) for nx <= 64, nu <= 32: one
+//                          thread block per instance
 //   riccati_backward_wide  the same for every larger size up to
-//                          nx <= kMaxNxW = 128, nu <= kMaxNuW = 64
+//                          nx <= kMaxNxW = 160, nu <= kMaxNuW = 80: one
+//                          thread-block cluster of C CTAs per instance
 //
-// A launch covers a batch of instances, one block each (gridDim.x = batch):
-// block b reads its instance's inputs at stride, its λ from reg[b], and
+// A launch covers a batch of instances, one block (one cluster) each: block
+// (cluster) b reads its instance's inputs at stride, its λ from reg[b], and
 // takes its own bump decision, as vmap gives the Pallas kernel one grid step
 // per instance. The single-instance call is a batch of one.
 //
@@ -27,11 +29,11 @@
 //
 // Non-finite behaviour is the reference's: a non-positive pivot gives
 // rsqrtf's NaN or inf, which propagates into K, k and the value function,
-// as rsqrt does on the TPU; the bump is one warp-wide decision over the
-// whole factor. Nothing is clamped or skipped. Full fp32 throughout.
+// as rsqrt does on the TPU; the bump is one decision over the whole factor.
+// Nothing is clamped or skipped. Full fp32 throughout (no TF32).
 //
-// Bound on this card (H1: nx=51, nu=19; counts from chip_smoke.py's
-// riccati_flops, one triangle of each symmetric result): about 0.81 Mflop
+// The narrow design. Bound on this card (H1: nx=51, nu=19; counts from
+// chip_smoke.py's riccati_flops, one triangle of each symmetric result): about 0.81 Mflop
 // per t, 80.7 Mflop at N=100, 1.20 µs at 67 TFLOP/s fp32; 3.05 MB of inputs
 // and outputs at N=100, 0.91 µs at 3.35 TB/s. The recursion is serial in t,
 // so the pass is bound by latency: each t is a chain of dependent products
@@ -77,34 +79,122 @@
 // limit (64, 32); 27,588 floats = 110,352 B for H1 (NXp=52, SA=52, NUp=20,
 // SU=20).
 //
-// The wide design. At nx=103, nu=45 (H1 with hands) the layout above needs
-// 456,032 B, twice what a block may use (232,448 B), so larger sizes take a
-// second kernel with the same phases and the same tile functions, and
-// three changes of layout (smem_floats_wide):
-//   - the knot's A, B, lxx, luu, lx, lu are staged into a per-block scratch
-//     buffer in global memory (two knots, padded and 16-byte aligned as the
-//     shared buffers are, zeroed at the start of the launch) and read from
-//     there, through L1 and L2 (13.1 MB for the hands pass at N=100, inside
-//     the 50 MB L2);
-//   - Qxx is written over [Vxx | Vx], which phase 1 has consumed, and the
-//     update writes the new value function over Qxx in place: each round of
-//     work items reads its T starting values, meets the others at a block
-//     barrier, then writes (an entry is read and written by one work item,
-//     or by the two halves of one pair, which share a round);
-//   - [K | k] and P take the place of AᵀVxx once phase 2 is done (phase 2
-//     forms every Qxx tile, none is left to phase 3), and L that of BᵀVxx
-//     once Quu is formed.
-// The factor runs in one warp with two rows per lane (rows i and i+32 in
-// lane i, so nu ≤ 64); a pivot's diagonal comes from its owning lane by one
-// shuffle (that lane's own value, the bits the carried diagonals give), the
-// rest is the narrow factor: one rsqrt, one store of the column (zeros
-// above the pivot and past nu), one __syncwarp, broadcast loads; the bump
-// stays one warp-wide decision. The solve is the narrow one instantiated at
-// nu = kMaxNuW with L's column stride 64. Shared memory at the limit
-// (128, 64): 54,656 floats = 218,624 B; hands (NXp=104, SA=104, NUp=48,
-// SU=48): 34,024 floats = 136,096 B; scratch 2 × (2·NXp·SA + NXp·SU +
-// NUp·SU + NXp + NUp) floats per instance (232,640 B for hands).
+// The wide design. At nx=103, nu=45 (H1 with hands) the narrow layout needs
+// 456,032 B, twice what a block may use (232,448 B), so an instance runs on
+// a thread-block cluster of C CTAs, launched with cudaLaunchKernelEx and a
+// cluster dimension, grid = C · batch. A CTA has 384 threads: a 4×4 tile
+// each covers every product of a hands knot in one round, and 168 registers
+// a thread keep the factor and the substitutions from spilling (512
+// threads, at 128 registers, spilled). The host takes the smallest C of 4,
+// 8 whose CTAs hold the working set (wide_cluster: 4 at (103, 45) and
+// (128, 64), 8 at (160, 80)). Two CTAs hold the hands sizes too, but four
+// measured faster there (tools/port_riccati_phases.py --cluster 2 against
+// --cluster 4, a probe build pinned to each size: the products halve per
+// CTA, the pushes grow), hence kMinCluster; the launch takes no other size.
+// kMaxNxW and kMaxNuW are where the working set stops fitting:
+// every size up to (160, 80) fits 8 CTAs, (161, 80) and (160, 81) fit none.
+// Bound on this card (hands, N=100, chip_smoke.py's counts): 729.9 Mflop,
+// 10.9 µs at 67 TFLOP/s; as in the narrow design the serial recursion makes
+// the pass latency-bound: per knot about 1.2 M FMA on each of four SMs,
+// around a factor and two substitutions that are serial within their
+// blocks, and ten cluster barriers.
+//
+// Who holds what. The columns [0, SA) of the nx-wide matrices (nx + 1 valid:
+// the last is Vx, Qu or k) are cut into C blocks of whole 4-column groups,
+// the columns [0, NUp) of the nu-wide ones likewise (WDims). Rank c holds in
+// its own shared memory, double-buffered, the columns of the knot's A and
+// lxx in its x block and of B and luu in its u block, with lx and lu there:
+// every knot input it consumes and nothing else. Each CTA also holds F, one
+// replicated buffer as large as [Vxx | Vx], whose content changes through
+// the knot: VV = [Vxx | Vx], Wᵀ (W = AᵀVxx), Yᵀ (Y = BᵀVxx), then Quu and
+// its factor L, then X = [K | k] and R = [Qxuᵀ | Qu], then T. A CTA forms
+// the blocks of the products it owns into local buffers and all-gathers
+// them: it writes each block into every CTA's F through distributed shared
+// memory (cluster.map_shared_rank), between two cluster.sync()s, the first
+// when no CTA reads F's old content any more, the second before anyone
+// reads the new. Per knot t, ten cluster barriers:
+//   1. W's rows on the x block and Y's on the u block from VV (all tiles of
+//      both in one loop); their Vx column gives Qx and Qu, written into
+//      every CTA's replicated Qx, Qu; barrier, push Wᵀ, barrier;
+//   2a. Qxx's x block = lxx + W·A (Wᵀ from F, A local), over the W block;
+//      barrier, push Yᵀ, barrier;
+//   2b. R's x block = Y·A, its Vx column Qu (Qxuᵀ = BᵀVxxA; Vxx is
+//      symmetric, so this is AᵀVxxB's transpose), and Quu's u block =
+//      luu + Y·B + λI; barrier, push Quu, barrier;
+//   3. every CTA factors the whole Quu and with it runs the forward
+//      substitution of its x block of R (below), so each takes the same bump
+//      decision on the same bits with one block-wide OR and no cluster-wide
+//      one; then the back substitution gives its block of X = −Quu⁻¹R; it
+//      writes its columns of K_t, k_t and forms its block of P = Quu·X + R
+//      (k's column summed from Qu); barrier, push X and R, barrier;
+//   4. T's x block = Qxx + XᵀP + RᵀX (X, R from F; P, X local), the Vx
+//      column started from Qx, over the Qxx block; barrier, push T,
+//      barrier; then each CTA symmetrizes its own F, Vxx = ½(T + Tᵀ), with
+//      the same operations, so every copy holds the same bits.
+// The last access to another CTA's memory in a knot precedes its last
+// barrier, so no CTA exits or overwrites a buffer while a peer reads it.
+// The products are the narrow design's register tiles: a thread owns a 4×4
+// tile, reads each operand as one float4 per step of the sum (both along a
+// row, outer-product form), and the lanes of a warp take neighbouring
+// column groups of the operand in F while sharing the local one (a
+// broadcast).
+//
+// The copies (KnotCopy). The inputs of knot t − 1 come into the other
+// buffer while knot t computes. A row of A at nx=103 is 412 B and A_k sits
+// at k·42,436 B: 4-byte aligned only, which allows no copy wider than 4
+// bytes. Of the two ways in, 4-byte cp.async with commit groups and padded
+// rows with tensor copies, the design takes the second: 4-byte cp.async of
+// a knot stalled its issuing warps ~11k cycles per knot
+// (tools/port_riccati_phases.py). So ops/riccati.py pads every row to a
+// multiple of 4 floats (pad_rows: ~13 MB more read and written per call at
+// (100, 103, 45), inside the op's call), and the kernel takes the knot by
+// TMA: thread 0 issues six 2-D tensor boxes per knot (cuTensorMapEncodeTiled
+// on the host, the maps passed as a __grid_constant__ parameter),
+// completing on the buffer's mbarrier, which every thread waits on before
+// the knot. A launch on rows that are not 16-byte aligned, or whose maps do
+// not encode, is refused with cudaErrorInvalidValue (the batched entry on
+// unpadded rows at an nx or nu that is not a multiple of 4, for one). One
+// bulk copy per row was tried first: the TMA unit took ~80 cycles per
+// 200-byte row, and the issuing warp stalled ~28k cycles per knot.
+//
+// The factor (factor_blocked) goes by panels of kPanel = 16 columns: warp 0
+// factors the diagonal block (a row per lane, the pivot's diagonal by a
+// shuffle from its own lane, L_jk by shuffles), one thread per row below
+// solves its panel row with the block's rsqrt per pivot, one thread per
+// right-hand side its entries of the panel (the forward substitution: each
+// step an IEEE division by L_kk, as the reference, through div_rn, which
+// keeps a zero numerator off the division's slow path), and all threads
+// apply the panel to the trailing lower triangle and the right-hand sides.
+// Each entry takes its pivots' terms one fmaf at a time in ascending order,
+// L_ik = S_ik·rsqrt(S_kk) and y_k = v_k / L_kk: the right-looking factor's
+// and the forward substitution's own operations, so the factor has the
+// bits of the pivot-by-pivot one and NaN or inf where it does; the bump is
+// one decision over the whole factor, and with it both start again from Quu
+// and R. The back substitution (back_blocked) goes up by blocks of 16 rows:
+// one thread per local column solves the diagonal block with the column in
+// registers (IEEE divisions again; no inverse of the block), then all
+// threads update the rows above as a product. It adds each row's terms in
+// descending k where the narrow solve goes ascending: a blocked back
+// substitution cannot keep that order without going serial again, and the
+// float64 bars are held on the card. The other sum orders: every product
+// sums k ascending with one fmaf per term; Qxuᵀ is Y·A where the narrow
+// design forms (AᵀVxx)·B; T takes its XᵀP and RᵀX terms as two fmafs per r.
+// The serial loops (the diagonal blocks) are rolled, with the row in
+// registers shifted by one column per step, so a warp's chain runs from a
+// small loop body.
+//
+// Shared memory per CTA (wide_floats): F = max(NXp·SA, nx·NUp, 2·NUp²,
+// 2·NUp·SA), two knot buffers (each array on 128 bytes, where a tensor box
+// lands), the W/Qxx/T block SA·wxm, the Y/Quu/X+P blocks, the R block
+// NUp·wxm, Qx, Qu, the pivots' rsqrt and two mbarriers. Hands (NXp=104,
+// SA=104, NUp=48), C=4, wxm=28, wum=12: 133,680 B (C=2: 212,016 B); the
+// limit (160, 80), C=8, wxm=24, wum=12: 230,176 B. No global scratch.
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <cstring>
 
 namespace {
 
@@ -112,9 +202,14 @@ constexpr int kThreads = 256;
 constexpr int kMaxNx = 64;
 constexpr int kMaxNu = 32;
 constexpr int kLs = kMaxNu;         // L's column stride
-constexpr int kMaxNxW = 128;        // the wide design's limits
-constexpr int kMaxNuW = 64;
-constexpr int kLsW = kMaxNuW;       // L's column stride there
+constexpr int kMaxNxW = 160;        // the wide design's limits: every size up to
+constexpr int kMaxNuW = 80;         // them fits a cluster of at most kMaxCluster CTAs
+constexpr int kThreadsW = 384;      // threads per CTA of the wide design
+constexpr int kMaxCluster = 8;      // the portable maximum
+constexpr int kMinCluster = 4;      // 2 CTAs hold the hands sizes, 4 measured faster there
+constexpr int kPanel = 16;          // the wide factor's panel and the solve's block
+constexpr int kPanelRows = 64;      // threads for the rows below a panel (nu - 16 at most)
+constexpr size_t kMaxSmemBytes = 232448;  // shared memory a block may use
 constexpr int kQuuThreads = 128;    // warps 0-3 form Quu
 constexpr int kQTiles = 352;        // Qxu/Qxx tiles formed beside the factor
 constexpr int kStageRows = 16;      // rows a warp stages per round
@@ -405,48 +500,6 @@ __device__ __forceinline__ bool factor(const float* Quu, float* L, int nu_rt, in
   return __any_sync(kFull, bad);
 }
 
-// The wide design's factor of Quu (nu ≤ kMaxNuW) by warp 0: lane i holds
-// rows i and i + 32 of S in registers. Pivot k takes its diagonal from the
-// lane that owns row k (one shuffle: that lane's value, updated by the same
-// FMAs the narrow factor's carried diagonals take), then as the narrow
-// factor: one rsqrt, the column stored (L_ik at L[k·kLsW + i], zero above
-// the pivot and past nu, so every later sum over it is exact zeros there),
-// one __syncwarp, broadcast loads. Returns to every lane whether any entry
-// of the factor is not finite, one value for the whole warp.
-__device__ __forceinline__ bool factor_wide(const float* Quu, float* L, int nu, int SU) {
-  constexpr int kNu4 = kMaxNuW;
-  const int i = threadIdx.x;
-  float s0[kNu4], s1[kNu4];
-#pragma unroll
-  for (int q = 0; q < kNu4; q += 4) {
-    float4 r0 = make_float4(0.f, 0.f, 0.f, 0.f), r1 = r0;
-    if (q < nu && i < nu) r0 = ld4(Quu + i * SU + q);
-    if (q < nu && i + 32 < nu) r1 = ld4(Quu + (i + 32) * SU + q);
-    s0[q] = r0.x, s0[q + 1] = r0.y, s0[q + 2] = r0.z, s0[q + 3] = r0.w;
-    s1[q] = r1.x, s1[q + 1] = r1.y, s1[q + 2] = r1.z, s1[q + 3] = r1.w;
-  }
-  bool bad = false;
-#pragma unroll
-  for (int k = 0; k < kMaxNuW; ++k) {
-    if (k < nu) {  // warp-uniform
-      const float r = rsqrtf(__shfl_sync(kFull, k < 32 ? s0[k] : s1[k], k & 31));
-      const float l0 = s0[k] * r, l1 = s1[k] * r;
-      const bool v0 = i >= k && i < nu, v1 = i + 32 >= k && i + 32 < nu;
-      L[k * kLsW + i] = v0 ? l0 : 0.f;
-      L[k * kLsW + i + 32] = v1 ? l1 : 0.f;
-      bad |= (v0 && !isfinite(l0)) || (v1 && !isfinite(l1));
-      __syncwarp();
-#pragma unroll
-      for (int j = k + 1; j < kNu4; ++j) {
-        const float ljk = L[k * kLsW + j];
-        s0[j] = fmaf(-l0, ljk, s0[j]);
-        s1[j] = fmaf(-l1, ljk, s1[j]);
-      }
-    }
-  }
-  return __any_sync(kFull, bad);
-}
-
 // Phase 3 (thread c ≤ nx): column c of X = −(L Lᵀ)⁻¹ R, the column in
 // registers, L read as broadcasts, each step ending in an IEEE division by
 // L_kk (as the reference). The forward substitution goes a column of L at
@@ -458,7 +511,7 @@ __device__ __forceinline__ bool factor_wide(const float* Quu, float* L, int nu, 
 // from Qu, the others Quu·K summed from 0 plus Qxuᵀ. Entries of x past nu
 // stay 0 (the forward pass is guarded there), as do L's and Quu's, so the
 // sums over them add exact zeros.
-template <int kNu, bool kFixed, int kL = kLs>
+template <int kNu, bool kFixed>
 __device__ __forceinline__ void phase_solve(const Smem& s, const Dims& d) {
   constexpr int kNu4 = round4(kNu);
   const int c = threadIdx.x, SU = d.SU, SA = d.SA;
@@ -469,18 +522,18 @@ __device__ __forceinline__ void phase_solve(const Smem& s, const Dims& d) {
 #pragma unroll
   for (int k = 0; k < kNu; ++k)
     if (k < nu) {
-      x[k] = x[k] / s.L[k * kL + k];
+      x[k] = x[k] / s.L[k * kLs + k];
 #pragma unroll
       for (int j = k + 1; j < kNu; ++j)
-        if (j < nu) x[j] = fmaf(-s.L[k * kL + j], x[k], x[j]);
+        if (j < nu) x[j] = fmaf(-s.L[k * kLs + j], x[k], x[j]);
     }
 #pragma unroll
   for (int k = kNu - 1; k >= 0; --k)
     if (k < nu) {
       float v = x[k];
 #pragma unroll
-      for (int j = k + 1; j < kNu; ++j) v = fmaf(-s.L[k * kL + j], x[j], v);
-      x[k] = v / s.L[k * kL + k];
+      for (int j = k + 1; j < kNu; ++j) v = fmaf(-s.L[k * kLs + j], x[j], v);
+      x[k] = v / s.L[k * kLs + k];
     }
 #pragma unroll
   for (int k = 0; k < kNu4; ++k) {
@@ -548,68 +601,6 @@ __device__ __forceinline__ void phase_update(const Smem& s, const Dims& d) {
         t1[a][b] = t0(s, d, i0 + a, j0 + b);
         t2[b][a] = t0(s, d, j0 + b, i0 + a);
       }
-#pragma unroll 4
-    for (int r = 0; r < d.nu; ++r) {
-      const float* Xr = s.X + r * SA;
-      const float* Pr = s.P + r * SA;
-      const float* Rr = s.R + r * SA;
-      const float2 xi2 = ld2(Xr + i0), pi2 = ld2(Pr + i0), ri2 = ld2(Rr + i0);
-      const float4 xj4 = ld4(Xr + j0), pj4 = ld4(Pr + j0), rj4 = ld4(Rr + j0);
-      const float xi[2] = {xi2.x, xi2.y}, pi[2] = {pi2.x, pi2.y}, ri[2] = {ri2.x, ri2.y};
-      const float xj[4] = {xj4.x, xj4.y, xj4.z, xj4.w}, pj[4] = {pj4.x, pj4.y, pj4.z, pj4.w},
-                  rj[4] = {rj4.x, rj4.y, rj4.z, rj4.w};
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          t1[a][b] += xi[a] * pj[b] + ri[a] * xj[b];
-          t2[b][a] += xj[b] * pi[a] + rj[b] * xi[a];
-        }
-    }
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int i = i0 + a, j = j0 + b;
-        if (i < d.nx && j < d.nx) {
-          const float v = 0.5f * (t1[a][b] + t2[b][a]);
-          s.VV[i * SA + j] = v;
-          if (I != J) s.VV[j * SA + i] = v;
-        } else if (i < d.nx && j == d.nx) {
-          s.VV[i * SA + j] = t1[a][b];
-        }
-      }
-  }
-}
-
-// Phase 4 of the wide design: phase_update's work items, with T's starting
-// values read from Qxx where the new [Vxx | Vx] is written. Each round of
-// kThreads items reads its starting values, meets the block at a barrier,
-// then sums and writes. An off-diagonal entry belongs to one item, and the
-// two halves of a diagonal tile's pair (items 2p, 2p+1) share a round, so
-// no write lands on a value another item has yet to read.
-__device__ __forceinline__ void phase_update_inplace(const Smem& s, const Dims& d) {
-  const int RG = d.NXp / 4, G = d.SA / 4, SA = d.SA;
-  const int n_items = 2 * (RG * G - RG * (RG - 1) / 2);
-  for (int w0 = 0; w0 < n_items; w0 += kThreads) {
-    const int w = w0 + threadIdx.x;
-    const bool on = w < n_items;
-    int I = 0, J = 0, i0 = 0, j0 = 0;
-    float t1[2][4], t2[4][2];
-    if (on) {
-      int p = w >> 1;
-      while (p >= G - I) p -= G - I++;
-      J = I + p, i0 = 4 * I + 2 * (w & 1), j0 = 4 * J;
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          t1[a][b] = t0(s, d, i0 + a, j0 + b);
-          t2[b][a] = t0(s, d, j0 + b, i0 + a);
-        }
-    }
-    __syncthreads();
-    if (!on) continue;
 #pragma unroll 4
     for (int r = 0; r < d.nu; ++r) {
       const float* Xr = s.X + r * SA;
@@ -720,111 +711,6 @@ riccati_backward(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-// The wide design (see the header): Smem's knot buffers (A, lxx, B, luu, lx,
-// lu) point into the block's scratch in global memory; QQ is VV, X and P
-// share AtVT's place, L BtVT's.
-__host__ __device__ inline size_t smem_floats_wide(const Dims& d) {
-  const size_t xa = (size_t)d.NXp * d.SA, ua = (size_t)d.NUp * d.SA;
-  const size_t xu = (size_t)d.NXp * d.SU, uu = (size_t)d.NUp * d.SU;
-  return 2 * xa + (2 * ua > xa ? 2 * ua - xa : 0) + ua + (xu > d.NUp * kLsW ? xu : d.NUp * kLsW) +
-         uu + d.NXp;
-}
-
-__host__ __device__ inline size_t scratch_floats_wide(const Dims& d) {
-  return 2 * ((size_t)2 * d.NXp * d.SA + (size_t)d.NXp * d.SU + (size_t)d.NUp * d.SU + d.NXp +
-              d.NUp);
-}
-
-__device__ inline Smem carve_wide(float* s, float* g, const Dims& d) {
-  Smem m;
-  const int xa = d.NXp * d.SA, ua = d.NUp * d.SA, xu = d.NXp * d.SU, uu = d.NUp * d.SU;
-  m.VV = m.QQ = s; s += xa;
-  m.AtVT = m.X = s;
-  m.P = s + ua; s += max(xa, 2 * ua);
-  m.R = s; s += ua;
-  m.BtVT = m.L = s; s += max(xu, d.NUp * kLsW);
-  m.Quu = s; s += uu;
-  m.Qx = s;
-  m.A = g; g += 2 * xa;
-  m.lxx = g; g += 2 * xa;
-  m.B = g; g += 2 * xu;
-  m.luu = g; g += 2 * uu;
-  m.lx = g; g += 2 * d.NXp;
-  m.lu = g;
-  return m;
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-riccati_backward_wide(const float* __restrict__ A, const float* __restrict__ B,
-                      const float* __restrict__ lx, const float* __restrict__ lu,
-                      const float* __restrict__ lxx, const float* __restrict__ luu,
-                      const float* __restrict__ reg_ptr, float pd_bump, float* __restrict__ K,
-                      float* __restrict__ kff, float* scratch, int N, int nx, int nu) {
-  extern __shared__ __align__(16) float smem[];
-  const Dims d = dims(nx, nu);
-  float* g = scratch + blockIdx.x * scratch_floats_wide(d);
-  const Smem s = carve_wide(smem, g, d);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int xa = d.NXp * d.SA, xu = d.NXp * d.SU, uu = d.NUp * d.SU;
-  const int n_vv = vv_tiles(d), n_q = q_tiles(d);
-  const int w_stage = (nx + 32) / 32;  // the first warp with no column to solve
-  const int n_stage = kThreads / 32 - w_stage;
-  const size_t bN = (size_t)blockIdx.x * N, bN1 = bN + blockIdx.x;
-  const float reg = reg_ptr[blockIdx.x];
-
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (size_t e = tid; e < smem_floats_wide(d) / 4; e += kThreads)
-    reinterpret_cast<float4*>(smem)[e] = zero;
-  for (size_t e = tid; e < scratch_floats_wide(d) / 4; e += kThreads)
-    reinterpret_cast<float4*>(g)[e] = zero;
-  __syncthreads();
-  stage_knot<8, 4>(s, d, (N - 1) & 1, bN + N - 1, bN1 + N - 1, warp, kThreads / 32, A, B, lx,
-                   lu, lxx, luu);
-  for (int e = tid; e < nx * nx; e += kThreads)
-    s.VV[(e / nx) * d.SA + e % nx] = lxx[(bN1 + N) * nx * nx + e];
-  for (int e = tid; e < nx; e += kThreads) s.VV[e * d.SA + nx] = lx[(bN1 + N) * nx + e];
-  __syncthreads();
-
-  for (int t = N - 1; t >= 0; --t) {
-    const int b = t & 1;
-    const float *Ab = s.A + b * xa, *Bb = s.B + b * xu, *lxxb = s.lxx + b * xa;
-
-    for (int w = tid; w < n_vv; w += kThreads)
-      vv_tile(s, d, w, Ab, Bb, s.lx + b * d.NXp, s.lu + b * d.NUp);
-    __syncthreads();
-
-    // Quu on warps 0-3, then its factor on warp 0; every Qxu/Qxx tile on
-    // warps 4-7 and, once Quu is done, warps 1-3.
-    if (tid < kQuuThreads) {
-      phase_quu(s, d, Bb, s.luu + b * uu, reg);
-      quu_sync();
-    }
-    if (tid < 32) {
-      if (factor_wide(s.Quu, s.L, nu, d.SU)) {  // warp-uniform
-        for (int r = tid; r < nu; r += 32) s.Quu[r * d.SU + r] += pd_bump;
-        __syncwarp();
-        factor_wide(s.Quu, s.L, nu, d.SU);
-      }
-    } else {
-      for (int w = tid - 32; w < n_q; w += kThreads - 32) q_tile(s, d, w, Ab, Bb, lxxb);
-    }
-    __syncthreads();
-
-    // The solve on the first warps; beside it the others stage knot t - 1.
-    if (tid <= nx) {
-      phase_solve<kMaxNuW, false, kLsW>(s, d);
-    } else if (warp >= w_stage && t > 0) {
-      stage_knot<8, 4>(s, d, (t - 1) & 1, bN + t - 1, bN1 + t - 1, warp - w_stage, n_stage, A,
-                       B, lx, lu, lxx, luu);
-    }
-    __syncthreads();
-
-    write_gains(s, d, bN + t, K, kff);
-    phase_update_inplace(s, d);
-    __syncthreads();
-  }
-}
-
 // Above 48 KB a block's shared memory must be opted into (227 KB max).
 template <typename Kernel>
 cudaError_t opt_in(Kernel kernel, size_t bytes) {
@@ -846,27 +732,788 @@ int launch(const float* A, const float* B, const float* lx, const float* lu, con
 
 bool narrow(int nx, int nu) { return nx <= kMaxNx && nu <= kMaxNu; }
 
+// ---- The wide design: one thread-block cluster per instance (see the header) ----
+
+namespace cg = cooperative_groups;
+
+// Phase stamps of the wide kernel: empty here; tools/port_riccati_phases.py
+// defines them in a probe copy (clock64 by thread 0 of the first CTA).
+#ifndef RICCATI_STAMP
+#define RICCATI_STAMP_START
+#define RICCATI_STAMP(i)
+#endif
+
+// Sizes of the wide design for a cluster of C CTAs. The columns [0, SA) of
+// the nx-wide matrices (nx + 1 of them valid: the last is Vx, Qu or k) are cut
+// into C blocks of whole 4-column groups, rank c taking groups
+// [c·G/C, (c+1)·G/C); the columns [0, NUp) of the nu-wide ones likewise.
+// wxm and wum are the widest blocks, the local buffers' row strides.
+struct WDims {
+  int nx, nu, NXp, NUp, SA, C, wxm, wum;
+};
+
+// The first column of rank c's block among `groups` 4-column groups.
+__host__ __device__ inline int block_start(int groups, int C, int c) {
+  return 4 * (c * groups / C);
+}
+
+__host__ __device__ inline size_t max2(size_t a, size_t b) { return a > b ? a : b; }
+
+// One knot's inputs as rank c holds them: the columns of A and lxx in its x
+// block, of B and luu in its u block, and lx, lu there (row strides wxm, wum).
+__host__ __device__ inline size_t round32(size_t n) { return (n + 31) & ~(size_t)31; }
+
+// (Each array starts on 128 bytes, where a tensor copy may land.)
+__host__ __device__ inline size_t knot_floats(const WDims& w) {
+  return round32((size_t)w.nx * w.wxm) + round32((size_t)w.NXp * w.wxm) +
+         round32((size_t)w.nx * w.wum) + round32((size_t)w.NUp * w.wum) + round32(w.wxm) +
+         round32(w.wum);
+}
+
+// F, the replicated buffer: [Vxx | Vx] (NXp × SA), then Wᵀ (the same), then
+// Yᵀ (nx × NUp), then Quu and L (NUp × NUp each), then X and R (NUp × SA each).
+__host__ __device__ inline size_t f_floats(const WDims& w) {
+  return round32(max2(max2((size_t)w.NXp * w.SA, (size_t)w.nx * w.NUp),
+                      max2(2 * (size_t)w.NUp * w.NUp, 2 * (size_t)w.NUp * w.SA)));
+}
+
+// Z: the Y block, then the Quu block, then the X and P blocks.
+__host__ __device__ inline size_t z_floats(const WDims& w) {
+  return max2(max2((size_t)w.SA * w.wum, (size_t)w.NUp * w.wum), 2 * (size_t)w.NUp * w.wxm);
+}
+
+// (32 floats of slack put the carve on 128 bytes.)
+__host__ __device__ inline size_t wide_floats(const WDims& w) {
+  return 32 + f_floats(w) + 2 * knot_floats(w) + (size_t)w.SA * w.wxm + z_floats(w) +
+         (size_t)w.NUp * w.wxm + w.SA + 2 * w.NUp + 4;
+}
+
+__host__ __device__ inline WDims wdims(int nx, int nu, int C) {
+  const Dims d = dims(nx, nu);
+  const int gx = d.SA / 4, gu = d.NUp / 4;
+  return WDims{nx, nu, d.NXp, d.NUp, d.SA, C, 4 * ((gx + C - 1) / C), 4 * ((gu + C - 1) / C)};
+}
+
+struct KnotBuf {
+  float *A, *lxx, *B, *luu, *lx, *lu;
+};
+
+__device__ inline KnotBuf carve_knot(float* s, const WDims& w) {
+  KnotBuf k;
+  k.A = s; s += round32(w.nx * w.wxm);
+  k.lxx = s; s += round32(w.NXp * w.wxm);
+  k.B = s; s += round32(w.nx * w.wum);
+  k.luu = s; s += round32(w.NUp * w.wum);
+  k.lx = s; s += round32(w.wxm);
+  k.lu = s;
+  return k;
+}
+
+struct WSmem {
+  float* F;         // replicated, see f_floats
+  float* knots;     // the double buffer: knot_floats each (carve_knot)
+  float* WB;        // the W block (SA × wxm, Wᵀ's rows), then Qxx's, then T's (NXp × wxm)
+  float* YB;        // the Y block (SA × wum, Yᵀ's rows)       } Z
+  float* QuuB;      // the Quu block (NUp × wum)                } Z
+  float *XB, *PB;   // the X and P blocks (NUp × wxm each)      } Z
+  float* RB;        // the R block (NUp × wxm)
+  float *Qx, *Qu;   // replicated (SA, NUp)
+  float* rk;        // the factor's rsqrt per pivot (NUp)
+  unsigned long long* bars;  // the knot buffers' mbarriers (2)
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ inline WSmem carve_w(float* s, const WDims& w) {
+  WSmem m;
+  s += ((128u - (smem_addr(s) & 127u)) & 127u) / 4;  // (pointer arithmetic: s stays shared)
+  m.F = s; s += f_floats(w);
+  m.knots = s; s += 2 * knot_floats(w);
+  m.WB = s; s += w.SA * w.wxm;
+  m.YB = m.QuuB = m.XB = s;
+  m.PB = s + w.NUp * w.wxm;
+  s += z_floats(w);
+  m.RB = s; s += w.NUp * w.wxm;
+  m.Qx = s; s += w.SA;
+  m.Qu = s; s += w.NUp;
+  m.rk = s; s += w.NUp;
+  m.bars = reinterpret_cast<unsigned long long*>(s);
+  return m;
+}
+
+
+// Knot t's inputs, the columns this rank holds, into buffer k, by tensor
+// copies (TMA; rows 16-byte aligned, as ops/riccati.py pads them): thread 0
+// issues one 2-D box per array (six per knot), completing on the buffer's
+// mbarrier, whose phase every thread waits for before the knot. A box is
+// wxm (wum) columns wide from the block's first column, so it also brings
+// the source's zero padding, a neighbour's columns that no tile reads, and
+// zeros past the row's end. tA and tX index the arrays with N and with
+// N + 1 knots per instance, as in stage_knot; xoff/uoff are the first column
+// of the rank's x and u blocks.
+// The six inputs as 2-D tensors of float rows (ldx or ldu wide), with the
+// boxes one rank takes per knot: A and lxx nx rows of wxm columns, lx one
+// row, B nx rows and luu nu rows of wum columns, lu one row.
+struct KnotMaps {
+  CUtensorMap A, lxx, lx, B, luu, lu;
+};
+
+struct KnotCopy {
+  KnotBuf k;
+  WDims w;
+  int xoff, uoff;
+  size_t tA, tX;
+  const KnotMaps* maps;
+
+  // One box per array (the box's columns past the row are zeros), the
+  // bytes of all six on the buffer's mbarrier.
+  __device__ __forceinline__ void box(const CUtensorMap& m, float* dst, int col, size_t row,
+                                      unsigned long long* bar) const {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+        "l"(reinterpret_cast<uint64_t>(&m)), "r"(smem_addr(bar)), "r"(col), "r"((int)row)
+        : "memory");
+  }
+
+  __device__ void issue(unsigned long long* bar) const {
+    if (threadIdx.x != 0) return;
+    // the buffer's last reads (and the first fill's zeroing) came through
+    // the generic proxy, before the barrier that led here
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const unsigned bytes = 4u * (w.wxm * (2 * w.nx + 1) + w.wum * (w.nx + w.nu + 1));
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                     smem_addr(bar)), "r"(bytes) : "memory");
+    box(maps->A, k.A, xoff, tA * w.nx, bar);
+    box(maps->lxx, k.lxx, xoff, tX * w.nx, bar);
+    box(maps->lx, k.lx, xoff, tX, bar);
+    box(maps->B, k.B, uoff, tA * w.nx, bar);
+    box(maps->luu, k.luu, uoff, tA * w.nu, bar);
+    box(maps->lu, k.lu, uoff, tA, bar);
+  }
+};
+
+// Wait until the tensor copies of a buffer's j-th knot (j = 0, 1, ...) have landed.
+__device__ __forceinline__ void wait_knot(unsigned long long* bar, int j) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)), "r"(j & 1) : "memory");
+}
+
+// The all-gather step: rows [0, rows) of a local block (row stride lds, w4
+// float4 per row) into every CTA's F at column col (row stride ldd), through
+// distributed shared memory (the CTA's own copy included).
+__device__ __forceinline__ void push_block(cg::cluster_group& cl, float* F, int ldd, int col,
+                                           const float* src, int lds, int rows, int w4) {
+  const int C = (int)cl.num_blocks();
+  for (int e = threadIdx.x; e < rows * w4; e += kThreadsW) {
+    const int r = e / w4, q = 4 * (e - r * w4);
+    const float4 v = ld4(src + r * lds + q);
+    float* d = F + r * ldd + col + q;
+    for (int c = 0; c < C; ++c) *reinterpret_cast<float4*>(cl.map_shared_rank(d, c)) = v;
+  }
+}
+
+// x / d with the plain division's result: a zero numerator gives the signed
+// zero (NaN where d is 0 or NaN) without dividing, so the division's slow
+// path, which a zero numerator sends the whole warp to, is never taken for
+// one (right-hand sides with zero entries are common).
+__device__ __forceinline__ float div_rn(float x, float d) {
+  const bool z = x == 0.f;
+  const float q = (z ? 1.f : x) / d;
+  if (!z) return q;
+  const int sign = (__float_as_int(x) ^ __float_as_int(d)) & 0x80000000;
+  return isnan(d) || d == 0.f ? __int_as_float(0x7fffffff) : __int_as_float(sign);
+}
+
+// Cholesky of the nu×nu matrix whose lower triangle is at L (S_ik at
+// L[k·ld + i], column-major), in place, and with it the forward
+// substitution L Y = R of the w right-hand sides in X (R_kc at X[k·ldx + c]),
+// by panels of kPanel columns: warp 0 factors the panel's diagonal block
+// (lane l on row p0 + l, the pivot's diagonal by one shuffle from its own
+// lane, L_jk by shuffles); one thread per row below solves its panel row
+// with the block's rsqrt per pivot (rk), and one thread per right-hand side
+// its panel entries, each step an IEEE division by L_kk, as the reference;
+// then all threads apply the panel to the trailing lower triangle and to
+// the right-hand sides' trailing entries. The right-hand sides are so many
+// more rows of the factor, and its forward substitution needs no chain of
+// its own. Every entry takes its pivots' terms one fmaf at a time in
+// ascending order, L_ik = S_ik·rsqrt(S_kk) and y_k = v_k / L_kk, as the
+// right-looking pivot-by-pivot factor (_chol_masked) and the forward
+// substitution, so a non-positive pivot gives rsqrtf's NaN or inf where the
+// reference's does. The serial loops are rolled, with the row in registers
+// shifted by one column per pivot (its current pivot column is always
+// element 0). Returns to every thread whether any entry of L is not finite
+// (one block-wide OR; the right-hand sides do not count).
+__device__ __forceinline__ bool factor_blocked(float* __restrict__ L, float* __restrict__ rk,
+                                               int nu, int ld, float* __restrict__ X, int ldx,
+                                               int w) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  bool bad = false;
+  for (int p0 = 0; p0 < nu; p0 += kPanel) {
+    const int pw = min(kPanel, nu - p0), pe = p0 + pw;
+    if (tid < 32) {
+      float sv[kPanel];  // sv[j] = S_{p0+lane, p0+k+j} at pivot k
+#pragma unroll
+      for (int q = 0; q < kPanel; ++q)
+        sv[q] = q <= lane && lane < pw ? L[(p0 + q) * ld + p0 + lane] : 0.f;
+#pragma unroll
+      for (int k = 0; k < kPanel; ++k) {
+        if (k >= pw) break;  // warp-uniform
+        const float r = rsqrtf(__shfl_sync(kFull, sv[0], k));
+        const float l = sv[0] * r;
+        if (lane >= k && lane < pw) {
+          L[(p0 + k) * ld + p0 + lane] = l;
+          bad |= !isfinite(l);
+        }
+        if (lane == 0) rk[p0 + k] = r;
+#pragma unroll
+        for (int j = 1; j < kPanel - k; ++j)
+          sv[j - 1] = fmaf(-l, __shfl_sync(kFull, l, k + j), sv[j]);
+      }
+    }
+    __syncthreads();
+    const bool lrow = pe + tid < nu, xrow = tid >= kPanelRows && tid < kPanelRows + w;
+    if (lrow || xrow) {
+      float* v = lrow ? L + pe + tid : X + tid - kPanelRows;  // the row's entry k at v[k·stride]
+      const int stride = lrow ? ld : ldx;
+      float sv[kPanel];  // sv[j] = the row's entry p0+k+j at pivot k
+#pragma unroll
+      for (int q = 0; q < kPanel; ++q) sv[q] = q < pw ? v[(p0 + q) * stride] : 0.f;
+#pragma unroll
+      for (int k = 0; k < kPanel; ++k) {
+        if (k >= pw) break;
+        const float* Lk = L + (p0 + k) * ld + p0 + k;  // L_{p0+k+j, p0+k} at Lk[j]
+        const float l = lrow ? sv[0] * rk[p0 + k] : div_rn(sv[0], Lk[0]);
+        v[(p0 + k) * stride] = l;
+        bad |= lrow && !isfinite(l);
+#pragma unroll
+        for (int j = 1; j < kPanel - k; ++j) sv[j - 1] = fmaf(-l, Lk[j], sv[j]);
+      }
+    }
+    __syncthreads();
+    const int m = nu - pe;
+    for (int e = tid; e < m * m; e += kThreadsW) {
+      const int b = e / m, a = e - b * m;  // row pe + a, column pe + b
+      if (b <= a) {
+        const int i = pe + a, j = pe + b;
+        float v = L[j * ld + i];
+        for (int k = p0; k < pe; ++k) v = fmaf(-L[k * ld + i], L[k * ld + j], v);
+        L[j * ld + i] = v;
+      }
+    }
+    for (int e = tid; e < m * w; e += kThreadsW) {
+      const int j = pe + e / w, c = e % w;  // right-hand side c's entry j
+      float v = X[j * ldx + c];
+      for (int k = p0; k < pe; ++k) v = fmaf(-X[k * ldx + c], L[k * ld + j], v);
+      X[j * ldx + c] = v;
+    }
+    __syncthreads();
+  }
+  return __syncthreads_or(bad);
+}
+
+// X ← (Lᵀ)⁻¹ X on the w local columns of X (X[u·ldx + c]), going up by
+// blocks of kPanel rows: threads c < w solve a diagonal block for column c
+// (the column's rows in registers, shifted by one per step, each step one
+// IEEE division by L_kk, as the reference), then all threads update the
+// rows above the block, one fmaf per term. A blocked back substitution cannot keep the
+// narrow solve's ascending sums without going serial again, so each row
+// takes its terms in descending k.
+__device__ __forceinline__ void back_blocked(const float* __restrict__ L, float* __restrict__ X,
+                                             int nu, int ld, int ldx, int w) {
+  const int tid = threadIdx.x;
+  const int rp = w > 0 ? kThreadsW / w : 0;        // rows an update takes at once
+  const int ur = w > 0 ? tid / w : rp, uc = tid - ur * w;  // this thread's row offset, column
+  for (int b0 = (nu - 1) / kPanel * kPanel; b0 >= 0; b0 -= kPanel) {
+    const int bw = min(kPanel, nu - b0);
+    if (tid < w) {
+      float y[kPanel];  // y[j] = row b0+k-j of the column at the step for row k
+#pragma unroll
+      for (int q = 0; q < kPanel; ++q) y[q] = q < bw ? X[(b0 + bw - 1 - q) * ldx + tid] : 0.f;
+#pragma unroll
+      for (int i = 0; i < kPanel; ++i) {
+        const int k = bw - 1 - i;  // row b0 + k
+        if (k < 0) break;
+        const float xk = div_rn(y[0], L[(b0 + k) * ld + b0 + k]);
+        X[(b0 + k) * ldx + tid] = xk;
+#pragma unroll
+        for (int j = 1; j < kPanel - i; ++j)  // L_{b0+k, b0+k-j}; rows above the block unused
+          y[j - 1] = fmaf(k >= j ? -L[(b0 + k - j) * ld + b0 + k] : 0.f, xk, y[j]);
+      }
+    }
+    __syncthreads();
+    if (ur < rp) {
+#pragma unroll 2
+      for (int i = ur; i < b0; i += rp) {
+        float v = X[i * ldx + uc];
+#pragma unroll 4
+        for (int k = b0 + bw - 1; k >= b0; --k) v = fmaf(-L[i * ld + k], X[k * ldx + uc], v);
+        X[i * ldx + uc] = v;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kThreadsW, 1)
+riccati_backward_wide(const float* __restrict__ lx, const float* __restrict__ lxx,
+                      const float* __restrict__ reg_ptr, float pd_bump, float* __restrict__ K,
+                      float* __restrict__ kff, int N, int nx, int nu, int ldx,
+                      const __grid_constant__ KnotMaps maps) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const WDims w = wdims(nx, nu, C);
+  const WSmem s = carve_w(smem, w);
+  const int tid = threadIdx.x, SA = w.SA, NUp = w.NUp, NXp = w.NXp, wxm = w.wxm, wum = w.wum;
+  const int gx = SA / 4, gu = NUp / 4;
+  const int xoff = block_start(gx, C, rank), xw = block_start(gx, C, rank + 1) - xoff;
+  const int uoff = block_start(gu, C, rank), uw = block_start(gu, C, rank + 1) - uoff;
+  const int inst = blockIdx.x / C;
+  const size_t bN = (size_t)inst * N, bN1 = bN + inst;  // this instance's knots
+  const float reg = reg_ptr[inst];
+  float* const F = s.F;
+
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (size_t e = tid; e < wide_floats(w) / 4; e += kThreadsW)
+    reinterpret_cast<float4*>(smem)[e] = zero;
+  __syncthreads();
+  if (tid == 0) {  // one mbarrier per knot buffer, one arrival (with its bytes) per fill
+    for (int b = 0; b < 2; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(s.bars + b))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const size_t kn = knot_floats(w);
+  const auto knot_copy = [&](int tk) {
+    return KnotCopy{carve_knot(s.knots + (tk & 1) * kn, w), w, xoff, uoff, bN + tk, bN1 + tk,
+                    &maps};
+  };
+  knot_copy(N - 1).issue(s.bars + ((N - 1) & 1));
+  for (int e = tid; e < nx * nx; e += kThreadsW)
+    F[(e / nx) * SA + e % nx] = lxx[((bN1 + N) * nx + e / nx) * ldx + e % nx];
+  for (int e = tid; e < nx; e += kThreadsW) F[e * SA + nx] = lx[(bN1 + N) * ldx + e];
+  cl.sync();  // every CTA of the cluster has started
+  RICCATI_STAMP_START
+
+  for (int t = N - 1; t >= 0; --t) {
+    const KnotBuf kb = carve_knot(s.knots + (t & 1) * kn, w);
+    wait_knot(s.bars + (t & 1), (N - 1 - t) >> 1);  // knot t has landed
+    if (t > 0) knot_copy(t - 1).issue(s.bars + ((t - 1) & 1));
+    RICCATI_STAMP(0);
+
+    // 1. W = AᵀVV on the x block and Y = BᵀVV on the u block, VV = [Vxx | Vx]
+    //    (F), stored transposed (Wᵀ's, Yᵀ's rows); their Vx column gives Qx and
+    //    Qu, written to every CTA.
+    {
+      const int rw = xw / 4, n1 = (rw + uw / 4) * gx;
+      for (int it = tid; it < n1; it += kThreadsW) {
+        const int rg = it / gx, j0 = 4 * (it - rg * gx);
+        const bool onY = rg >= rw;
+        const int r0 = 4 * (onY ? rg - rw : rg), ld = onY ? wum : wxm;
+        float acc[4][4] = {};
+        outer_sum(acc, (onY ? kb.B : kb.A) + r0, ld, F + j0, SA, nx);
+        float* T = (onY ? s.YB : s.WB) + r0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          st4(T + (j0 + b) * ld, acc[0][b], acc[1][b], acc[2][b], acc[3][b]);
+        const int bn = nx - j0;  // the Vx column's place in the tile
+        if (bn >= 0 && bn < 4) {
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const int i = (onY ? uoff : xoff) + r0 + a;
+            const float av = bn == 0 ? acc[a][0] : bn == 1 ? acc[a][1] : bn == 2 ? acc[a][2]
+                                                                                : acc[a][3];
+            const float v = (onY ? kb.lu : kb.lx)[r0 + a] + av;
+            float* dst = (onY ? s.Qu : s.Qx) + i;
+#pragma unroll 1
+            for (int c = 0; c < C; ++c)
+              if (i < (onY ? nu : nx)) *cl.map_shared_rank(dst, c) = v;
+          }
+        }
+      }
+    }
+    RICCATI_STAMP(1);
+    cl.sync();  // every CTA has read its VV
+    RICCATI_STAMP(2);
+    push_block(cl, F, SA, xoff, s.WB, wxm, nx, xw / 4);  // F = Wᵀ
+    cl.sync();
+    RICCATI_STAMP(3);
+
+    // 2a. Qxx's x block: Qxx[i][j] = lxx[i][j] + Σ_k Wᵀ[k][i]·A[k][j], over the
+    //     W block's place.
+    {
+      const int gi = NXp / 4, n2 = gi * (xw / 4);
+      for (int it = tid; it < n2; it += kThreadsW) {
+        const int jg = it / gi, i0 = 4 * (it - jg * gi), j0 = 4 * jg;
+        float acc[4][4] = {};
+        outer_sum(acc, F + i0, SA, kb.A + j0, wxm, nx);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float4 l = ld4(kb.lxx + (i0 + a) * wxm + j0);
+          st4(s.WB + (i0 + a) * wxm + j0, l.x + acc[a][0], l.y + acc[a][1], l.z + acc[a][2],
+              l.w + acc[a][3]);
+        }
+      }
+    }
+    RICCATI_STAMP(4);
+    cl.sync();  // every CTA has read Wᵀ
+    RICCATI_STAMP(5);
+    push_block(cl, F, NUp, uoff, s.YB, wum, nx, uw / 4);  // F = Yᵀ
+    cl.sync();
+    RICCATI_STAMP(6);
+
+    // 2b. R = [Qxuᵀ | Qu] on the x block, Qxuᵀ = Y·A (Vxx is symmetric), and
+    //     Quu = luu + Y·B + λI on the u block.
+    {
+      const int n_r = gu * (xw / 4), n2 = n_r + gu * (uw / 4);
+      for (int it = tid; it < n2; it += kThreadsW) {
+        const bool onR = it < n_r;
+        const int q = onR ? it : it - n_r;
+        const int cg_ = q / gu, u0 = 4 * (q - cg_ * gu), c0 = 4 * cg_;
+        float acc[4][4] = {};
+        outer_sum(acc, F + u0, NUp, (onR ? kb.A : kb.B) + c0, onR ? wxm : wum, nx);
+        if (onR) {
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              s.RB[(u0 + a) * wxm + c0 + b] =
+                  xoff + c0 + b == nx ? (u0 + a < nu ? s.Qu[u0 + a] : 0.f) : acc[a][b];
+        } else {
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              float v = kb.luu[(u0 + a) * wum + c0 + b] + acc[a][b];
+              if (u0 + a == uoff + c0 + b) v += reg;
+              s.QuuB[(u0 + a) * wum + c0 + b] = v;
+            }
+        }
+      }
+    }
+    RICCATI_STAMP(7);
+    cl.sync();  // every CTA has read Yᵀ
+    RICCATI_STAMP(8);
+    push_block(cl, F, NUp, uoff, s.QuuB, wum, NUp, uw / 4);  // F = [Quu | L]
+    cl.sync();
+    RICCATI_STAMP(9);
+
+    // 3. Every CTA factors the whole Quu (the same bits, so the same bump
+    //    decision everywhere), adds pd_bump·I and factors again when the factor
+    //    has a non-finite entry; then solves its x block of [K | k], forms P's,
+    //    and writes its columns of K_t, k_t.
+    float* Quu = F;
+    float* L = F + NUp * NUp;
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int e = tid; e < nu * nu; e += kThreadsW) {
+        const int k = e / nu, i = e - k * nu;
+        if (i >= k) L[k * NUp + i] = Quu[i * NUp + k];
+      }
+      for (int e = tid; e < NUp * xw; e += kThreadsW) {
+        const int u = e / xw, c = e - u * xw;
+        s.XB[u * wxm + c] = u < nu ? s.RB[u * wxm + c] : 0.f;
+      }
+      __syncthreads();
+      if (!factor_blocked(L, s.rk, nu, NUp, s.XB, wxm, xw) || pass == 1) break;  // block-uniform
+      if (tid < nu) Quu[tid * NUp + tid] += pd_bump;
+      __syncthreads();
+    }
+    RICCATI_STAMP(10);
+    back_blocked(L, s.XB, nu, NUp, wxm, xw);
+    RICCATI_STAMP(11);
+    for (int e = tid; e < nu * xw; e += kThreadsW) {
+      const int u = e / xw, c = e - u * xw;
+      const float v = -s.XB[u * wxm + c];
+      s.XB[u * wxm + c] = v;
+      const int j = xoff + c;
+      if (j < nx) K[((bN + t) * nu + u) * nx + j] = v;
+      else if (j == nx) kff[(bN + t) * nu + u] = v;
+    }
+    __syncthreads();
+    {  // P = Quu·X + R; k's column is Quu·k + Qu summed from Qu
+      const int gj = xw / 4;
+      for (int it = tid; it < gu * gj; it += kThreadsW) {
+        const int ug = it / gj, u0 = 4 * ug, c0 = 4 * (it - ug * gj);
+        float acc[4][4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            acc[a][b] = xoff + c0 + b == nx ? s.RB[(u0 + a) * wxm + c0 + b] : 0.f;
+        for (int q = 0; q < nu; ++q) {
+          const float4 x = ld4(s.XB + q * wxm + c0);
+          const float xb[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const float qa = Quu[(u0 + a) * NUp + q];
+#pragma unroll
+            for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(qa, xb[b], acc[a][b]);
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int o = (u0 + a) * wxm + c0 + b;
+            s.PB[o] = xoff + c0 + b == nx ? acc[a][b] : acc[a][b] + s.RB[o];
+          }
+      }
+    }
+    RICCATI_STAMP(12);
+    cl.sync();  // every CTA is done with Quu and L
+    RICCATI_STAMP(13);
+    push_block(cl, F, SA, xoff, s.XB, wxm, NUp, xw / 4);            // F = [X | R]
+    push_block(cl, F + NUp * SA, SA, xoff, s.RB, wxm, NUp, xw / 4);
+    cl.sync();
+    RICCATI_STAMP(14);
+
+    // 4. T = Qxx + XᵀP + RᵀX on the x block, in place over Qxx: T[i][j] takes
+    //    X[r][i]·P[r][j], then R[r][i]·X[r][j], one fmaf each, r ascending; the
+    //    Vx column starts from Qx.
+    {
+      const int gi = NXp / 4, n4 = gi * (xw / 4);
+      const float* X = F;
+      const float* R = F + NUp * SA;
+      for (int it = tid; it < n4; it += kThreadsW) {
+        const int jg = it / gi, i0 = 4 * (it - jg * gi), j0 = 4 * jg;
+        float acc[4][4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            acc[a][b] = xoff + j0 + b == nx ? s.Qx[i0 + a] : s.WB[(i0 + a) * wxm + j0 + b];
+#pragma unroll 2
+        for (int r = 0; r < nu; ++r) {
+          const float4 x4 = ld4(X + r * SA + i0), r4 = ld4(R + r * SA + i0);
+          const float4 p4 = ld4(s.PB + r * wxm + j0), y4 = ld4(s.XB + r * wxm + j0);
+          const float xi[4] = {x4.x, x4.y, x4.z, x4.w}, ri[4] = {r4.x, r4.y, r4.z, r4.w};
+          const float pj[4] = {p4.x, p4.y, p4.z, p4.w}, xj[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              acc[a][b] = fmaf(xi[a], pj[b], acc[a][b]);
+              acc[a][b] = fmaf(ri[a], xj[b], acc[a][b]);
+            }
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          st4(s.WB + (i0 + a) * wxm + j0, acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+      }
+    }
+    RICCATI_STAMP(15);
+    cl.sync();  // every CTA is done with X and R
+    RICCATI_STAMP(16);
+    push_block(cl, F, SA, xoff, s.WB, wxm, nx, xw / 4);  // F = [T | Vx]
+    cl.sync();  // the last access to another CTA's memory in this knot
+    RICCATI_STAMP(17);
+
+    // Vxx = ½(T + Tᵀ), in every CTA alike, a pair of 4×4 tiles (I, J), I ≤ J,
+    // per thread; Vx (column nx) and the padding stay as T left them.
+    {
+      const int G = NXp / 4, n_pairs = G * (G + 1) / 2;
+      for (int it = tid; it < n_pairs; it += kThreadsW) {
+        int I = 0, p = it;
+        while (p >= G - I) p -= G - I++;
+        const int i0 = 4 * I, j0 = 4 * (I + p);
+        float a[4][4], b[4][4];  // T's tiles (I, J) and (J, I)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float4 u = ld4(F + (i0 + r) * SA + j0), v = ld4(F + (j0 + r) * SA + i0);
+          a[r][0] = u.x, a[r][1] = u.y, a[r][2] = u.z, a[r][3] = u.w;
+          b[r][0] = v.x, b[r][1] = v.y, b[r][2] = v.z, b[r][3] = v.w;
+        }
+        float na[4][4], nb[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const bool in = i0 + r < nx && j0 + c < nx;
+            const float v = 0.5f * (a[r][c] + b[c][r]);
+            na[r][c] = in ? v : a[r][c];
+            nb[c][r] = in ? v : b[c][r];
+          }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          st4(F + (i0 + r) * SA + j0, na[r][0], na[r][1], na[r][2], na[r][3]);
+          if (p > 0) st4(F + (j0 + r) * SA + i0, nb[r][0], nb[r][1], nb[r][2], nb[r][3]);
+        }
+      }
+    }
+    __syncthreads();
+    RICCATI_STAMP(18);
+  }
+}
+
+// The smallest cluster of kMinCluster, then 8 CTAs whose CTAs hold the
+// working set of (nx, nu), or 0. A probe build may pin another size C,
+// where it holds the working set (-DRICCATI_FORCE_CLUSTER=C:
+// tools/port_riccati_phases.py --cluster C).
+int wide_cluster(int nx, int nu) {
+#ifdef RICCATI_FORCE_CLUSTER
+  constexpr int kFirst = RICCATI_FORCE_CLUSTER, kLast = RICCATI_FORCE_CLUSTER;
+#else
+  constexpr int kFirst = kMinCluster, kLast = kMaxCluster;
+#endif
+  static_assert(kFirst >= 1 && kLast <= kMaxCluster, "a cluster of 1 to 8 CTAs");
+  for (int C = kFirst; C <= kLast; C *= 2)
+    if (sizeof(float) * wide_floats(wdims(nx, nu, C)) <= kMaxSmemBytes) return C;
+  return 0;
+}
+
+cudaLaunchConfig_t wide_config(int C, int batch, size_t bytes, cudaStream_t st,
+                               cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * batch, 1, 1);
+  cfg.blockDim = dim3(kThreadsW, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// (no link to libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) == cudaSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D float tensor of `rows` rows of `ld` floats, boxes of box_rows × box_cols
+// (each at most 256: nx + 1 ≤ kMaxNxW + 1).
+bool tensor_map(CUtensorMap* m, const float* base, int ld, size_t rows, int box_cols,
+                int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dim[2] = {(cuuint64_t)ld, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)ld * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dim, stride, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// The wide design on a cluster of wide_cluster(nx, nu) CTAs per instance.
+// Refuses (cudaErrorInvalidValue) rows that tensor copies cannot take (ldx,
+// ldu not multiples of 4 floats, an array not 16-byte aligned) and maps
+// that do not encode.
+int launch_wide(const float* A, const float* B, const float* lx, const float* lu,
+                const float* lxx, const float* luu, const float* reg, float pd_bump, float* K,
+                float* kff, int ldx, int ldu, int batch, int N, int nx, int nu,
+                cudaStream_t st) {
+  static_assert(kMaxNxW + 1 <= 256, "a tensor box is at most 256 wide and high");
+  const int C = wide_cluster(nx, nu);
+  const bool aligned = (((uintptr_t)A | (uintptr_t)B | (uintptr_t)lx | (uintptr_t)lu |
+                         (uintptr_t)lxx | (uintptr_t)luu) & 15) == 0;
+  if (C == 0 || !aligned || ldx < nx || ldu < nu || ldx % 4 != 0 || ldu % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const WDims w = wdims(nx, nu, C);
+  KnotMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  const size_t n = (size_t)batch;
+  if (!(tensor_map(&maps.A, A, ldx, n * N * nx, w.wxm, nx) &&
+        tensor_map(&maps.lxx, lxx, ldx, n * (N + 1) * nx, w.wxm, nx) &&
+        tensor_map(&maps.lx, lx, ldx, n * (N + 1), w.wxm, 1) &&
+        tensor_map(&maps.B, B, ldu, n * N * nx, w.wum, nx) &&
+        tensor_map(&maps.luu, luu, ldu, n * N * nu, w.wum, nu) &&
+        tensor_map(&maps.lu, lu, ldu, n * N, w.wum, 1)))
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = sizeof(float) * wide_floats(w);
+  cudaError_t e = opt_in(riccati_backward_wide, bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = wide_config(C, batch, bytes, st, &attr);
+  e = cudaLaunchKernelEx(&cfg, riccati_backward_wide, lx, lxx, reg, pd_bump, K, kff, N, nx, nu,
+                         ldx, maps);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory per block, and global scratch per instance (floats), of the
-// design that takes (nx, nu).
+// Shared memory per block (per CTA of the wide design's cluster) of the
+// design that takes (nx, nu); -1 where none does.
 long long mpc_riccati_smem_bytes(int nx, int nu) {
-  const Dims d = dims(nx, nu);
-  return (long long)(sizeof(float) * (narrow(nx, nu) ? smem_floats(d) : smem_floats_wide(d)));
+  if (narrow(nx, nu)) return (long long)(sizeof(float) * smem_floats(dims(nx, nu)));
+  const int C = wide_cluster(nx, nu);
+  return C ? (long long)(sizeof(float) * wide_floats(wdims(nx, nu, C))) : -1;
 }
 
-long long mpc_riccati_scratch_floats(int nx, int nu) {
-  return narrow(nx, nu) ? 0 : (long long)scratch_floats_wide(dims(nx, nu));
+// Global scratch per instance (floats): none, at every size (an earlier
+// wide design staged its knots in one; callers that drive both ask this).
+long long mpc_riccati_scratch_floats(int nx, int nu) { return 0; }
+
+// The CTAs per instance of the wide design at (nx, nu) (the smallest cluster
+// that holds its working set), or 0 where the narrow design takes the size
+// or no cluster of at most 8 holds it.
+int mpc_riccati_cluster(int nx, int nu) { return narrow(nx, nu) ? 0 : wide_cluster(nx, nu); }
+
+// cudaOccupancyMaxActiveClusters for the wide design at (nx, nu) on its
+// cluster (how many such clusters the card holds at once), or minus the CUDA
+// error.
+int mpc_riccati_active_clusters(int nx, int nu) {
+  const int C = narrow(nx, nu) ? 0 : wide_cluster(nx, nu);
+  if (C == 0) return -(int)cudaErrorInvalidValue;
+  const size_t bytes = sizeof(float) * wide_floats(wdims(nx, nu, C));
+  cudaError_t e = opt_in(riccati_backward_wide, bytes);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = wide_config(C, 1, bytes, nullptr, &attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, riccati_backward_wide, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// The wide design at any size up to its limits (the narrow design's sizes
+// too), on inputs whose rows are ldx (A, lxx, lx) and ldu (B, luu, lu)
+// floats apart: multiples of 4, the arrays 16-byte aligned, as
+// ops/riccati.pad_rows gives them; anything else is refused
+// (cudaErrorInvalidValue).
+int mpc_riccati_backward_wide(const float* A, const float* B, const float* lx, const float* lu,
+                              const float* lxx, const float* luu, const float* reg, float pd_bump,
+                              float* K, float* kff, int ldx, int ldu, int batch, int N, int nx,
+                              int nu, void* stream) {
+  if (batch < 1 || N < 1 || nx < 1 || nu < 1 || nx > kMaxNxW || nu > kMaxNuW)
+    return (int)cudaErrorInvalidValue;
+  return launch_wide(A, B, lx, lu, lxx, luu, reg, pd_bump, K, kff, ldx, ldu, batch, N, nx, nu,
+                     (cudaStream_t)stream);
 }
 
 // K (batch, N, nu, nx), kff (batch, N, nu) from A (batch, N, nx, nx),
 // B (batch, N, nx, nu), lx (batch, N+1, nx), lu (batch, N, nu),
 // lxx (batch, N+1, nx, nx), luu (batch, N, nu, nu) and λ (batch,), all
-// row-major float32 on the device (no host read of λ); one block per
-// instance. `scratch` holds batch · mpc_riccati_scratch_floats(nx, nu)
-// floats on the device (unused, and may be null, for the narrow design).
+// row-major float32 on the device (no host read of λ); one block (narrow)
+// or one cluster (wide) per instance. The wide design takes the rows as they
+// are, so it refuses (cudaErrorInvalidValue) an nx or nu that is not a
+// multiple of 4: pad them first and call mpc_riccati_backward_wide, as
+// ops/riccati.py does. `scratch` is not read and may be null:
+// the argument stays so that one caller drives this design and the earlier
+// one, which took batch · mpc_riccati_scratch_floats(nx, nu) floats there.
 int mpc_riccati_backward_batched(const float* A, const float* B, const float* lx,
                                  const float* lu, const float* lxx, const float* luu,
                                  const float* reg, float pd_bump, float* K, float* kff,
@@ -879,13 +1526,7 @@ int mpc_riccati_backward_batched(const float* A, const float* B, const float* lx
   if (narrow(nx, nu))
     return launch<kMaxNu, false>(A, B, lx, lu, lxx, luu, reg, pd_bump, K, kff, batch, N, nx, nu,
                                  st);
-  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t bytes = sizeof(float) * smem_floats_wide(dims(nx, nu));
-  cudaError_t e = opt_in(riccati_backward_wide, bytes);
-  if (e != cudaSuccess) return (int)e;
-  riccati_backward_wide<<<batch, kThreads, bytes, st>>>(A, B, lx, lu, lxx, luu, reg, pd_bump, K,
-                                                         kff, scratch, N, nx, nu);
-  return (int)cudaGetLastError();
+  return launch_wide(A, B, lx, lu, lxx, luu, reg, pd_bump, K, kff, nx, nu, batch, N, nx, nu, st);
 }
 
 // One instance (the batched launch with batch = 1), for the sizes every

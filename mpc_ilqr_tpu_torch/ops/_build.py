@@ -134,6 +134,14 @@ def bind(lib_path: str) -> ctypes.CDLL:
         lib.mpc_riccati_backward_batched.restype = I
         lib.mpc_riccati_scratch_floats.argtypes = [I, I]
         lib.mpc_riccati_scratch_floats.restype = LL
+    if hasattr(lib, "mpc_riccati_cluster"):  # the cluster design
+        lib.mpc_riccati_cluster.argtypes = [I, I]
+        lib.mpc_riccati_cluster.restype = I
+        lib.mpc_riccati_active_clusters.argtypes = [I, I]
+        lib.mpc_riccati_active_clusters.restype = I
+        # A, B, lx, lu, lxx, luu, reg, pd_bump, K, kff, ldx, ldu, batch, N, nx, nu, stream
+        lib.mpc_riccati_backward_wide.argtypes = [P] * 7 + [F, P, P] + [I] * 6 + [P]
+        lib.mpc_riccati_backward_wide.restype = I
     return lib
 
 

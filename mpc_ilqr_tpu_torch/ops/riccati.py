@@ -5,11 +5,15 @@ count.
 
 K4 is the custom op `mpc_ilqr_tpu_torch::riccati_backward` over a leading
 batch of instances, with a `torch.func.vmap` rule, so that a vmapped solve
-(solve_batched, the fleet) runs it as one launch with one block per
-instance, each with its own λ: the counterpart of the grid step per
-instance that vmap gives the Pallas kernel. On CUDA tensors the op launches
-`riccati_backward` or, above nx = 64 or nu = 32, `riccati_backward_wide`
-(csrc/riccati.cu) on the current stream, checks the launch, counts it in
+(solve_batched, the fleet) runs it as one launch with one block (or one
+thread-block cluster) per instance, each with its own λ: the counterpart of
+the grid step per instance that vmap gives the Pallas kernel. On CUDA
+tensors the op launches `riccati_backward` or, where the C side's
+`mpc_riccati_cluster` names a cluster (above nx = 64 or nu = 32),
+`riccati_backward_wide` (csrc/riccati.cu: a cluster of CTAs per instance,
+no global scratch; `pad_rows` first pads the rows to multiples of 4 floats
+so that each knot comes in by tensor copies) on the current stream, checks
+the launch, counts it in
 LAUNCHES and never synchronises; λ goes to the kernel as a device tensor,
 so no backward pass reads it on the host. It raises on anything the kernel
 does not take: float32 only, as on the TPU, contiguous, one device,
@@ -24,7 +28,7 @@ import torch
 
 from mpc_ilqr_tpu_torch.ops import _build
 
-MAX_NX, MAX_NU = 128, 64  # csrc/riccati.cu kMaxNxW, kMaxNuW
+MAX_NX, MAX_NU = 160, 80  # csrc/riccati.cu kMaxNxW, kMaxNuW
 LAUNCHES = {"riccati": 0}
 LAST_LAUNCH = {"batch": 0, "N": 0, "nx": 0, "nu": 0}  # the shape of the last launch
 CUDA_KERNEL = {"riccati": "riccati_backward"}
@@ -126,7 +130,8 @@ def _on_card(tensors, shapes) -> bool:
 
 
 def _launch(A, B, lx, lu, lxx, luu, reg, pd_bump: float):
-    """One launch over the batch (one block per instance) on CUDA tensors."""
+    """One launch over the batch (one block or cluster per instance) on CUDA
+    tensors."""
     args = (A, B, lx, lu, lxx, luu, reg)
     for t in args:
         if t.dtype != torch.float32 or not t.is_contiguous():
@@ -137,18 +142,37 @@ def _launch(A, B, lx, lu, lxx, luu, reg, pd_bump: float):
     lib = _build.library()
     K = torch.empty((n, N, nu, nx), dtype=torch.float32, device=dev)
     kff = torch.empty((n, N, nu), dtype=torch.float32, device=dev)
-    n_scratch = lib.mpc_riccati_scratch_floats(nx, nu)
-    scratch = torch.empty((n * n_scratch,), dtype=torch.float32, device=dev) if n_scratch else None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.mpc_riccati_backward_batched(
-        *(t.data_ptr() for t in args), float(pd_bump), K.data_ptr(), kff.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None, n, N, nx, nu, stream)
+    if lib.mpc_riccati_cluster(nx, nu):  # the wide design, on padded rows
+        padded, ldx, ldu = pad_rows(A, B, lx, lu, lxx, luu)
+        rc = lib.mpc_riccati_backward_wide(*(t.data_ptr() for t in padded), reg.data_ptr(),
+                                           float(pd_bump), K.data_ptr(), kff.data_ptr(), ldx, ldu,
+                                           n, N, nx, nu, stream)
+    else:
+        rc = lib.mpc_riccati_backward_batched(*(t.data_ptr() for t in args), float(pd_bump),
+                                              K.data_ptr(), kff.data_ptr(), None, n, N, nx, nu,
+                                              stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel riccati_backward failed to launch: "
                            f"{lib.mpc_error_string(rc).decode()} (error {rc})")
     LAUNCHES["riccati"] += 1
     LAST_LAUNCH.update(batch=n, N=N, nx=nx, nu=nu)
     return K, kff
+
+
+def pad_rows(A, B, lx, lu, lxx, luu):
+    """The wide design's inputs with every row padded by zeros to a multiple
+    of 4 floats (ldx = round4(nx) for A, lxx, lx; ldu = round4(nu) for B,
+    luu, lu), in new 16-byte aligned tensors, so that each knot comes into
+    shared memory by tensor copies (a row of A at nx=103 is 412 bytes, and
+    tensor copies take rows of multiples of 16 bytes at 16-byte aligned
+    addresses; the kernel refuses other rows). One
+    extra read and write of the inputs, ~13 MB at (N, nx, nu) = (100, 103, 45)."""
+    nx, nu = A.shape[-1], B.shape[-1]
+    ldx, ldu = -(-nx // 4) * 4, -(-nu // 4) * 4
+    px = lambda t: torch.nn.functional.pad(t, (0, ldx - nx))
+    pu = lambda t: torch.nn.functional.pad(t, (0, ldu - nu))
+    return (px(A), pu(B), px(lx), pu(lu), px(lxx), pu(luu)), ldx, ldu
 
 
 @torch.library.custom_op("mpc_ilqr_tpu_torch::riccati_backward", mutates_args=())

@@ -280,7 +280,11 @@ def _riccati_inputs(N, nx, nu, case="plain"):
                                                (8, 103, 45, RICCATI_REG, "indefinite"),
                                                (3, 128, 64, 1e-6, "plain"),
                                                (10, 8, 64, RICCATI_REG, "rescued"),
-                                               (3, 65, 3, 1e-6, "plain")])
+                                               (3, 65, 3, 1e-6, "plain"),
+                                               (3, 160, 80, 1e-6, "plain"),
+                                               (8, 160, 80, RICCATI_REG, "rescued"),
+                                               (8, 160, 80, RICCATI_REG, "indefinite"),
+                                               (8, 128, 64, RICCATI_REG, "rescued")])
 def test_riccati_kernel_matches_plain_and_counts_its_launch(card, N, nx, nu, reg, case):
     """K4 against its plain version at the JAX package's Riccati bar
     (rtol 2e-3, atol 2e-4, tests/test_ops.py:36-37), non-finite exactly where
@@ -290,8 +294,10 @@ def test_riccati_kernel_matches_plain_and_counts_its_launch(card, N, nx, nu, reg
     first design's largest size, (3, 33, 7) a ragged one and N=1 the
     shortest pass; the next two take the bump and its NaNs through the
     instantiation for every nu but H1's. The rest go through the wide
-    design: H1 with hands (103, 45) and its bump cases, its largest size
-    (128, 64), and sizes past the first design's in one dimension only."""
+    design, a cluster of CTAs per instance: H1 with hands (103, 45) and its
+    bump cases, (128, 64) and sizes past the narrow design's in one
+    dimension only (4 CTAs each), and the limit (160, 80) with its bump
+    cases (8)."""
     from mpc_ilqr_tpu_torch.ops import riccati
 
     args = _riccati_inputs(N, nx, nu, case)
@@ -314,7 +320,7 @@ def test_riccati_kernel_matches_plain_and_counts_its_launch(card, N, nx, nu, reg
         assert bad.tolist() == [t <= RICCATI_T_BAD for t in range(N)]
 
 
-@pytest.mark.parametrize("nx,nu", [(51, 19), (33, 7), (103, 45)])
+@pytest.mark.parametrize("nx,nu", [(51, 19), (33, 7), (103, 45), (160, 80)])
 def test_riccati_batch_is_one_launch_equal_to_single_launches(card, nx, nu):
     """torch.func.vmap of K4 over 3 instances with their own λ (one of them
     with the PD bump): one launch, no host sync, each instance's gains bit
@@ -341,6 +347,51 @@ def test_riccati_batch_is_one_launch_equal_to_single_launches(card, nx, nu):
     for i, (Ks, ks) in enumerate(singles):
         assert torch.equal(K[i], Ks) and torch.equal(k[i], ks), i
     assert bool(torch.isfinite(k[1]).all())  # the bump rescued the zero pivot
+
+
+@pytest.mark.parametrize("N,nx,nu,reg,case", [(10, 13, 5, 1e-5, "plain"),
+                                               (10, 51, 19, RICCATI_REG, "rescued"),
+                                               (8, 103, 45, RICCATI_REG, "indefinite")])
+def test_riccati_wide_entry_matches_plain_and_refuses_unaligned_rows(card, N, nx, nu, reg, case):
+    """The wide design through its C entry point, also at sizes the narrow
+    design takes, on rows padded as the op pads them: the bar against the
+    plain version, non-finite exactly where it is. On the rows as they are
+    (412 bytes at nx=103: no tensor copy takes them) both the wide entry and
+    the batched one refuse the launch with cudaErrorInvalidValue. The
+    clusters the op launches (4 CTAs at (103, 45), 8 at the limit) can be
+    resident (cudaOccupancyMaxActiveClusters > 0)."""
+    from mpc_ilqr_tpu_torch.ops import _build
+    from mpc_ilqr_tpu_torch.ops import riccati
+
+    lib = _build.library()
+    assert lib.mpc_riccati_cluster(103, 45) == 4
+    assert lib.mpc_riccati_cluster(riccati.MAX_NX, riccati.MAX_NU) == 8
+    for size in ((103, 45), (riccati.MAX_NX, riccati.MAX_NU)):
+        assert lib.mpc_riccati_active_clusters(*size) > 0, size
+    args = _riccati_inputs(N, nx, nu, case)
+    want = riccati.backward_pass_plain(*args, reg, 1e-4)
+    reg_d = torch.tensor([reg], dtype=torch.float32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    K, k = torch.empty((N, nu, nx), device="cuda"), torch.empty((N, nu), device="cuda")
+
+    def wide(ins, ldx, ldu):
+        return lib.mpc_riccati_backward_wide(*(t.data_ptr() for t in ins), reg_d.data_ptr(),
+                                             1e-4, K.data_ptr(), k.data_ptr(), ldx, ldu, 1, N,
+                                             nx, nu, stream)
+
+    assert wide(*riccati.pad_rows(*args)) == 0
+    torch.cuda.synchronize()
+    for got, ref in ((K, want[0]), (k, want[1])):
+        fin = torch.isfinite(ref)
+        assert torch.equal(torch.isfinite(got), fin)
+        np.testing.assert_allclose(got[fin].cpu().numpy(), ref[fin].cpu().numpy(),
+                                   rtol=2e-3, atol=2e-4)
+    invalid = 1  # cudaErrorInvalidValue
+    assert wide(args, nx, nu) == invalid
+    if lib.mpc_riccati_cluster(nx, nu):
+        assert lib.mpc_riccati_backward_batched(
+            *(t.data_ptr() for t in args), reg_d.data_ptr(), 1e-4, K.data_ptr(), k.data_ptr(),
+            None, 1, N, nx, nu, stream) == invalid
 
 
 def test_riccati_kernel_matches_float64_on_the_long_horizon_inputs(card):

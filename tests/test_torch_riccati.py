@@ -42,9 +42,10 @@ def _assert_same(got, want, rtol, atol):
     (3, 64, 32, "plain"), (3, 33, 7, "plain"), (1, 51, 19, "plain"),  # the first CUDA design's
     (10, 33, 7, "rescued"), (10, 64, 32, "indefinite"),  # largest size, a ragged one, N=1,
     # and the bump at sizes other than H1's; H1 with hands (the wide design), its bump cases
-    # (N=8: one step past the bad one), and the wide design's largest size
+    # (N=8: one step past the bad one), the first wide design's largest size, and the
+    # cluster design's limit with the bump
     (3, 103, 45, "plain"), (8, 103, 45, "rescued"), (8, 103, 45, "indefinite"),
-    (3, 128, 64, "plain"),
+    (3, 128, 64, "plain"), (3, 160, 80, "plain"), (8, 160, 80, "rescued"),
 ])
 def test_plain_matches_the_pallas_kernel(N, nx, nu, case):
     arrs = random_problem(N, nx, nu, case)
@@ -109,11 +110,11 @@ def test_cpu_wrapper_runs_the_plain_version_uncounted():
 def test_wrapper_raises_on_what_it_does_not_take():
     """The wrapper's checks, and its stated limit: the wide design's
     (csrc/riccati.cu kMaxNxW, kMaxNuW), at least H1 with hands and
-    nx=128, nu=64 (test_torch_cuda.py holds the card to it)."""
+    nx=160, nu=80 (test_torch_cuda.py holds the card to it)."""
     src = open(os.path.join(ROOT, "mpc_ilqr_tpu_torch", "csrc", "riccati.cu")).read()
     limit = tuple(int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
                   for k in ("kMaxNxW", "kMaxNuW"))
-    assert (riccati.MAX_NX, riccati.MAX_NU) == limit and limit >= (128, 64)
+    assert (riccati.MAX_NX, riccati.MAX_NU) == limit and limit >= (160, 80)
     arrs = [torch.tensor(a) for a in random_problem(4, 13, 5)]
     with pytest.raises(ValueError):  # a device that is neither CPU nor CUDA
         riccati.backward_pass_kernel(*(a.to("meta") for a in arrs), REG, 1e-4)
@@ -127,3 +128,16 @@ def test_wrapper_raises_on_what_it_does_not_take():
         riccati.backward_pass_kernel(arrs[0][:0], arrs[1][:0], arrs[2][:1], arrs[3][:0],
                                      arrs[4][:1], arrs[5][:0], REG, 1e-4)
 
+
+
+@pytest.mark.parametrize("nx,nu", [(103, 45), (160, 80), (65, 3), (128, 64)])
+def test_pad_rows_pads_each_row_to_a_multiple_of_four_floats(nx, nu):
+    """What the wrapper hands the wide design: every row of A, lxx, lx
+    padded by zeros to ldx = round4(nx) floats, of B, luu, lu to
+    ldu = round4(nu), in new contiguous tensors, the values kept."""
+    arrs = [torch.tensor(a) for a in random_problem(2, nx, nu)]
+    padded, ldx, ldu = riccati.pad_rows(*arrs)
+    assert (ldx, ldu) == (-(-nx // 4) * 4, -(-nu // 4) * 4) and ldx % 4 == 0 and ldu % 4 == 0
+    for t, p, n, ld in zip(arrs, padded, (nx, nu, nx, nu, nx, nu), (ldx, ldu, ldx, ldu, ldx, ldu)):
+        assert p.shape == (*t.shape[:-1], ld) and p.is_contiguous() and p.dtype == t.dtype
+        assert torch.equal(p[..., :n], t) and not bool(p[..., n:].any())
